@@ -1,0 +1,83 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface, at first use, and loaded with
+``ctypes``.  The library's file name carries a hash of its source and
+flags, so an edited source is rebuilt and an unchanged one is reused.
+All sources missing a library are compiled at once, one ``nvcc`` each.
+A failed build raises: there is no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+#: <repo>/build/repro_torch_kernels for the src/ layout
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+SOURCES = ("vector_step", "vector_quantiles")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
+              "-Xptxas=-v")
+
+_loaded: dict = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built with "
+                           "the CUDA toolkit on the machine with the card")
+    return path
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{key[:16]}.so"
+
+
+def build(names=SOURCES) -> dict:
+    """Compile every library of ``names`` that is missing, all ``nvcc``
+    processes started together.  Returns ``{name: compiler output}`` for
+    the ones built (ptxas register and shared-memory report)."""
+    todo = [n for n in names if not library_path(n).exists()]
+    if not todo:
+        return {}
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for n in todo:
+        tmp = BUILD_DIR / f".{library_path(n).name}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT,
+                                          text=True))
+    logs, failed = {}, []
+    for n, (tmp, p) in procs.items():
+        out, _ = p.communicate()
+        logs[n] = out
+        if p.returncode != 0:
+            failed.append(f"{n}.cu (nvcc exit {p.returncode}):\n{out}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, library_path(n))  # atomic under concurrent builds
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build((name,))
+        lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
+    return lib
+
