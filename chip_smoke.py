@@ -2,20 +2,34 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, the vector grid runtime, on the card:
+Drives the port's two main paths on the card, the vector grid runtime
+and real-model serving:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+   ``nvcc`` per source, all started together);
 3. holds every kernel against its plain PyTorch version on the card, at
-   the shapes the main path gives it: every output bit-equal;
+   the shapes the main paths give it: the vector kernels bit-equal, the
+   attention kernels within their stated tolerance;
 4. runs four grids end to end through ``repro_torch.vector.run_cells``
    (the paper's Fig. 1 grid, a 16-server jsq grid, server-failure and
-   batched-serving), checks that every kernel was launched and every row
-   is finite, and holds three cells of each grid against the same cells
-   run on the CPU;
-5. times each kernel, its plain version and, for the quantile head, the
-   library sort, with CUDA events (median of repeated runs);
-6. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
+   batched-serving), checks that every vector kernel was launched and
+   every row is finite, and holds three cells of each grid against the
+   same cells run on the CPU;
+5. runs phi3-mini-3.8b at full width and a depth of 2 layers on the CPU
+   (plain versions) and on the card (kernels), from the same seeded
+   weights: a 128-token prompt and 8 greedy tokens, equal tokens and
+   logits within ``F32_LOGIT_TOL`` with the weights in f32; the served
+   bf16 weights, the card fed the CPU's tokens, within ``BF16_LOGIT_TOL``;
+6. serves phi3-mini-3.8b at full width through
+   ``repro_torch.launch.serve.main`` (2 replicas sharing one copy of the
+   weights, open-loop clients, 10 s), checks that every request
+   completed with finite latencies and that both attention kernels were
+   launched, and prints the serving metrics;
+7. times each kernel, its plain version and, where one PyTorch call
+   computes the same function, that call, with CUDA events (median of
+   repeated runs);
+8. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
    ...}`` line.
 
 Any failed phase exits non-zero.  Without a CUDA device, or without the
@@ -40,14 +54,39 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 #: H100 SXM published peaks (NVIDIA data sheet, 700 W): device memory
-#: rate and f32 rate outside the tensor cores
+#: rate, f32 rate outside the tensor cores, dense bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 #: repeats of each timed call (the median is reported)
 TIMED_RUNS = 10
 #: grid rows on the card vs the same cells on the CPU (the tolerances of
 #: tests/test_torch_vector_parity.py against the JAX reference)
 ROW_RTOL = 1e-6
+#: attention kernel vs plain version, relative to max|v|: the prefill
+#: kernel keeps the probabilities in f32 where the plain version rounds
+#: them to bf16 (<= 3 * 2^-9, see tests/test_torch_cuda_kernels.py); the
+#: decode kernel rounds where the plain version does
+ATTN_TOL = 2.0 ** -7
+#: full-width logits, card vs CPU, relative to max|logit|.  f32 weights:
+#: only f32 sums taken in other orders differ, and the bf16 cache entries
+#: they round into.  bf16 weights: every product rounds to bf16, in other
+#: places on the two devices, and the logits are bf16 themselves (one
+#: step is 2^-7 relative, 0.0078 at |logit| ~1.3), so greedy tokens can
+#: split on a tie: the card is fed the CPU's tokens and only the logits
+#: are held, to 4 such steps (the JAX package's own ref and Pallas paths
+#: differ by 1.17e-2, 1.5 steps, on this model in bf16)
+F32_LOGIT_TOL = 1e-3
+BF16_LOGIT_TOL = 3e-2
+#: the serving run of the main path (launch.serve flags)
+SERVE_ARGS = ["--arch", "phi3-mini-3.8b", "--replicas", "2",
+              "--max-batch", "4", "--prompt-len", "128", "--max-new", "32",
+              "--clients", "2", "--qps", "2", "--duration", "10",
+              "--policy", "jsq", "--seed", "0"]
+#: the decode cache length of that run (make_warmed_engine: prompt + new
+#: tokens + 32) and the prefill bucket of its 128-token prompts
+SERVE_MAX_LEN = 128 + 32 + 32
+SERVE_BUCKET = 128
 
 
 def fail(msg: str) -> None:
@@ -117,14 +156,31 @@ def scan_case(progs, seeds, device):
                                                      shape, device)
 
 
+#: device cycles (~1 ms on an H100) the card spins before each timed
+#: call, while the host queues it (see cuda_ms)
+SPIN_CYCLES = 2_000_000
+#: bytes written between timed calls: more than the 50 MB L2
+FLUSH_BYTES = 64 << 20
+
+
 def cuda_ms(fn, runs: int = TIMED_RUNS) -> float:
     """Median device time of ``fn()`` over ``runs`` calls, CUDA events,
-    after one warm-up call."""
+    after one warm-up call.  Before each call the card spins for
+    ``SPIN_CYCLES`` and then overwrites ``FLUSH_BYTES``, both outside the
+    events: the host queues the call while the card is still busy, so
+    the events time the card's work and not the host's launch (checks,
+    allocations, ctypes), and the inputs come from device memory, not
+    from the L2 that the previous call left warm, as on the main paths,
+    where a layer's inputs were last touched one step of 7.6 GB of
+    weights earlier."""
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     fn()
     times = []
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        flush.zero_()
         start.record()
         fn()
         end.record()
@@ -228,6 +284,246 @@ def check_quantiles(device) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def attention_bound(bytes_moved: int, flops: float, fl_rate: float):
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / fl_rate
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def library_time(fn):
+    """CUDA-event time of a PyTorch yardstick call, or None (with the
+    reason printed) when this PyTorch cannot make that call."""
+    try:
+        return cuda_ms(fn)
+    except (RuntimeError, TypeError, ValueError) as e:
+        print(f"  library call unavailable: {e}", flush=True)
+        return None
+
+
+#: (label, B, S = T, H, KV, hd, window): phi3's prefill at three prompt
+#: buckets and the bucket the serving run uses, plus one GQA case with a
+#: sliding window; all causal
+FLASH_CASES = [
+    ("phi3 S=32", 1, 32, 32, 32, 96, None),
+    ("phi3 S=128 (served bucket)", 1, SERVE_BUCKET, 32, 32, 96, None),
+    ("phi3 S=512", 1, 512, 32, 32, 96, None),
+    ("phi3 S=2048", 1, 2048, 32, 32, 96, None),
+    ("gqa+window S=1024", 1, 1024, 32, 8, 128, 256),
+]
+
+
+def check_flash(device, label, B, S, H, KV, hd, window) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=device).manual_seed(S * 131 + KV)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=device
+                           ).to(torch.bfloat16)
+    q, k, v = rnd(B, S, H, hd), rnd(B, S, KV, hd), rnd(B, S, KV, hd)
+    out = fa.flash_attention(q, k, v, causal=True, window=window)
+    plain = ref.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out.float()).all():
+        fail(f"flash_attention {label}: output not finite")
+    err = (out.float() - plain.float()).abs().max().item()
+    tol = ATTN_TOL * v.float().abs().max().item()
+    if err > tol:
+        fail(f"flash_attention {label}: |kernel - plain| {err:.3e} > "
+             f"{tol:.3e}")
+    i = torch.arange(S, device=device)
+    ok = i[None, :] <= i[:, None]
+    if window is not None:
+        ok &= i[None, :] > i[:, None] - window
+    pairs = int(ok.sum().item())                 # unmasked (query, key)
+    bound_ms, bound_by = attention_bound(
+        nbytes((q, k, v, out)), 4.0 * hd * pairs * H * B, BF16_OPS_PER_S)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    if window is None:
+        def library():
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True)
+    else:
+        def library():
+            F.scaled_dot_product_attention(qt, kt, vt, attn_mask=ok,
+                                           enable_gqa=True)
+    return {"shape": {"B": B, "S": S, "T": S, "H": H, "KV": KV, "hd": hd,
+                      "causal": True, "window": window},
+            "max_abs_err": err, "tol": tol,
+            "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True,
+                                                     window=window)),
+            "plain_ms": cuda_ms(lambda: ref.flash_attention(
+                q, k, v, causal=True, window=window)),
+            "library_ms": library_time(library),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+#: (label, B, T, H, KV, hd, window, ring): the serving run's decode
+#: (max batch 4, T = its cache length) and one ring/window case
+DECODE_CASES = [
+    ("phi3 serving B=4 T=192", 4, SERVE_MAX_LEN, 32, 32, 96, None, False),
+    ("ring+window B=4 T=512", 4, 512, 32, 8, 128, 384, True),
+]
+
+
+def check_decode(device, label, B, T, H, KV, hd, window, ring) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=device).manual_seed(T * 7 + KV)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=device
+                           ).to(torch.bfloat16)
+    q, k, v = rnd(B, H, hd), rnd(B, T, KV, hd), rnd(B, T, KV, hd)
+    # ragged rows: slot j holds position j (-1 past a row's prompt and
+    # tokens, as an engine's cache does); the ring holds j + T in its
+    # first r slots, the newest positions of a wrapped row
+    lengths = torch.tensor([T, T - 41, T // 2 + 3, 5][:B], dtype=torch.int32,
+                           device=device)
+    pos = torch.arange(T, dtype=torch.int32, device=device).repeat(B, 1)
+    pos = torch.where(pos < lengths[:, None], pos, torch.full_like(pos, -1))
+    if ring:
+        r = torch.tensor([37, 0, 100, 3][:B], dtype=torch.int32,
+                         device=device)
+        j = torch.arange(T, dtype=torch.int32, device=device)[None, :]
+        pos = torch.where(j < r[:, None], j + T, j)
+        lengths = T + r
+    q_pos = lengths - 1
+    kw = dict(lengths=lengths, key_positions=pos, q_pos=q_pos, window=window)
+    out = da.decode_attention(q, k, v, **kw)
+    plain = ref.decode_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out.float()).all():
+        fail(f"decode_attention {label}: output not finite")
+    err = (out.float() - plain.float()).abs().max().item()
+    tol = ATTN_TOL * v.float().abs().max().item()
+    if err > tol:
+        fail(f"decode_attention {label}: |kernel - plain| {err:.3e} > "
+             f"{tol:.3e}")
+    valid = (pos >= 0) & (pos < lengths[:, None])
+    if window is not None:
+        valid &= pos > q_pos[:, None] - window
+    keys = int(valid.sum().item())               # (row, key) pairs
+    bound_ms, bound_by = attention_bound(
+        nbytes((q, k, v, out, lengths, pos, q_pos)),
+        4.0 * hd * keys * H, BF16_OPS_PER_S)
+    qt = q[:, :, None, :]
+    kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    mask = valid[:, None, None, :]
+
+    def library():
+        F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                       enable_gqa=True)
+    return {"shape": {"B": B, "T": T, "H": H, "KV": KV, "hd": hd,
+                      "window": window, "ring": ring,
+                      "lengths": lengths.tolist()},
+            "max_abs_err": err, "tol": tol,
+            "ms": cuda_ms(lambda: da.decode_attention(q, k, v, **kw)),
+            "plain_ms": cuda_ms(lambda: ref.decode_attention(q, k, v, **kw)),
+            "library_ms": library_time(library),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def greedy(cfg, params, prompt, max_len: int, steps: int, forced=None):
+    """Prefill ``prompt`` (1, S) and decode ``steps`` tokens greedily, or
+    feeding ``forced`` tokens; -> (logits [steps + 1, V] f32 on the CPU,
+    own argmax tokens)."""
+    from repro_torch.models import registry as R
+    logits, cache, pos = R.prefill(cfg, params, {"tokens": prompt}, max_len)
+    out, toks = [logits.float().cpu()], [int(logits.argmax(-1)[0])]
+    for i in range(steps):
+        feed = toks[-1] if forced is None else forced[i]
+        tok = torch.tensor([feed], dtype=torch.int32, device=prompt.device)
+        logits, cache = R.decode_step(cfg, params, cache, tok, pos)
+        pos = pos + 1
+        out.append(logits.float().cpu())
+        toks.append(int(logits.argmax(-1)[0]))
+    return torch.cat(out), toks
+
+
+def check_full_width(device) -> dict:
+    """phi3-mini-3.8b at full width, 2 layers: the same seeded weights on
+    the CPU (plain versions) and on the card (kernels)."""
+    from dataclasses import replace
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import param as P
+    from repro_torch.models import registry as R
+    cfg = replace(get_config("phi3-mini-3.8b"), num_layers=2)
+    params = R.init_params(cfg, torch.Generator().manual_seed(0))
+    prompt = torch.randint(0, cfg.vocab_size, (1, 128), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(1))
+    steps, max_len = 8, 128 + 8 + 32
+    rec = {"cfg": {"num_layers": cfg.num_layers, "d_model": cfg.d_model,
+                   "heads": cfg.num_heads, "head_dim": cfg.resolved_head_dim,
+                   "vocab": cfg.vocab_size, "params": R.count_params(cfg)},
+           "prompt": 128, "steps": steps}
+
+    def rel(a, b):
+        return ((a - b).abs().max(-1).values
+                / b.abs().max(-1).values).max().item()
+
+    # f32 weights: greedy on each side, the tokens must be equal
+    p32 = P.tree_map(lambda t: t.float(), params)
+    t0 = time.perf_counter()
+    cpu_l, cpu_t = greedy(cfg, p32, prompt, max_len, steps)
+    cpu_s = time.perf_counter() - t0
+    gpu_l, gpu_t = greedy(cfg, P.tree_map(lambda t: t.to(device), p32),
+                          prompt.to(device), max_len, steps)
+    err32 = rel(gpu_l, cpu_l)
+    top2 = cpu_l.topk(2, dim=-1).values
+    margin = ((top2[:, 0] - top2[:, 1]) / cpu_l.abs().max(-1).values).min()
+    rec["f32"] = {"cpu_tokens": cpu_t, "card_tokens": gpu_t,
+                  "logits_rel_err": err32, "tol": F32_LOGIT_TOL,
+                  "min_top2_gap_rel": margin.item(), "cpu_s": cpu_s}
+    print(f"full width f32: tokens cpu {cpu_t} card {gpu_t}, logits rel "
+          f"err {err32:.3e} (smallest top-2 gap {margin.item():.3e})",
+          flush=True)
+    if gpu_t != cpu_t:
+        fail("full width f32: greedy tokens differ between card and CPU")
+    if not err32 <= F32_LOGIT_TOL:
+        fail(f"full width f32: logits rel err {err32:.3e} > {F32_LOGIT_TOL}")
+    # the served bf16 weights: the card follows the CPU's tokens
+    cpu_l, cpu_t = greedy(cfg, params, prompt, max_len, steps)
+    gpu_l, gpu_t = greedy(cfg, P.tree_map(lambda t: t.to(device), params),
+                          prompt.to(device), max_len, steps,
+                          forced=cpu_t[:-1])
+    err16 = rel(gpu_l, cpu_l)
+    agree = sum(a == b for a, b in zip(cpu_t, gpu_t))
+    rec["bf16"] = {"cpu_tokens": cpu_t, "card_argmax": gpu_t,
+                   "argmax_agree": agree, "logits_rel_err": err16,
+                   "tol": BF16_LOGIT_TOL}
+    print(f"full width bf16 (card fed the CPU's tokens): argmax agrees at "
+          f"{agree} of {steps + 1} steps, logits rel err {err16:.3e}",
+          flush=True)
+    if not err16 <= BF16_LOGIT_TOL:
+        fail(f"full width bf16: logits rel err {err16:.3e} > "
+             f"{BF16_LOGIT_TOL}")
+    return rec
+
+
+def run_serving() -> dict:
+    """The serving main path, as a user starts it."""
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    report = serve.main(SERVE_ARGS)
+    report["phase_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    if report["n"] < 1 or report["dropped"] or \
+            report["n"] != report["submitted"]:
+        fail(f"serving: {report['n']} of {report['submitted']} requests "
+             f"completed, {report['dropped']} dropped")
+    for key in ("p50_ms", "p95_ms", "p99_ms", "ttft_p50_ms", "ttft_p99_ms",
+                "decode_step_ms", "tokens_per_s"):
+        if not math.isfinite(report[key]) or report[key] <= 0:
+            fail(f"serving: {key} = {report[key]!r}")
+    return report
+
+
 def rows_close(gpu, cpu) -> str:
     """'' when a card row matches its CPU row within the test
     tolerances, else what differs."""
@@ -250,8 +546,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a "
              "CUDA GPU")
-    from repro_torch.kernels import _build, vector_quantiles, vector_step
+    from repro_torch.kernels import (_build, decode_attention,
+                                     flash_attention, vector_quantiles,
+                                     vector_step)
     from repro_torch.vector import VectorConfig, run_cells
+
+    # a float32 product on the card runs in full float32, as on the CPU
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -286,11 +588,23 @@ def main() -> int:
     rec = check_quantiles(device)
     record["checks"]["fused_quantiles"] = rec
     print(f"check fused_quantiles: {json.dumps(rec)}", flush=True)
+    for case in FLASH_CASES:
+        rec = check_flash(device, *case)
+        record["checks"][f"flash_attention/{case[0]}"] = rec
+        print(f"check flash_attention {case[0]}: {json.dumps(rec)}",
+              flush=True)
+    for case in DECODE_CASES:
+        rec = check_decode(device, *case)
+        record["checks"][f"decode_attention/{case[0]}"] = rec
+        print(f"check decode_attention {case[0]}: {json.dumps(rec)}",
+              flush=True)
 
-    # ---- the main path, end to end -----------------------------------------
-    kernels = (vector_step.scalar_scan, vector_step.batched_scan,
-               vector_quantiles.fused_quantiles)
-    for k in kernels:
+    # ---- main path 1, the vector grid runtime, end to end ------------------
+    vector_kernels = (vector_step.scalar_scan, vector_step.batched_scan,
+                      vector_quantiles.fused_quantiles)
+    attention_kernels = (flash_attention.flash_attention,
+                         decode_attention.decode_attention)
+    for k in vector_kernels + attention_kernels:
         k.launches = 0
     results = {}
     record["e2e"] = {}
@@ -304,11 +618,11 @@ def main() -> int:
                                "cells_per_s": len(rows) / wall}
         print(f"e2e {name}: {len(rows)} cells in {wall:.3f} s "
               f"({len(rows) / wall:.1f} cells/s)", flush=True)
-    launches = {k.__name__: k.launches for k in kernels}
-    print(f"launches on the main path: {launches}", flush=True)
+    launches = {k.__name__: k.launches for k in vector_kernels}
+    print(f"launches on the vector path: {launches}", flush=True)
     for name, n in launches.items():
         if n < 1:
-            fail(f"kernel {name} was not launched on the main path")
+            fail(f"kernel {name} was not launched on the vector path")
     for name, rows in results.items():
         for i, r in enumerate(rows):
             vals = (r.mean, r.p50, r.p95, r.p99)
@@ -331,10 +645,33 @@ def main() -> int:
         print(f"cpu parity {name}: cells {pick} match "
               f"({same} of 3 bit-identical)", flush=True)
 
+    # ---- full width, reduced depth: the card against the CPU ---------------
+    record["full_width"] = check_full_width(device)
+
+    # ---- main path 2, serving phi3-mini-3.8b at full width -----------------
+    for k in vector_kernels + attention_kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    record["serving"] = run_serving()
+    serve_launches = {k.__name__: k.launches for k in attention_kernels}
+    print(f"launches on the serving path: {serve_launches}", flush=True)
+    for name, n in serve_launches.items():
+        if n < 1:
+            fail(f"kernel {name} was not launched on the serving path")
+    launches.update(serve_launches)
+    r = record["serving"]
+    print(f"serving phi3-mini-3.8b: {r['n']} requests, p50 "
+          f"{r['p50_ms']:.1f} ms, p95 {r['p95_ms']:.1f} ms, p99 "
+          f"{r['p99_ms']:.1f} ms, TTFT p50 {r['ttft_p50_ms']:.1f} ms, "
+          f"decode step {r['decode_step_ms']:.2f} ms, "
+          f"{r['tokens_per_s']:.1f} tokens/s", flush=True)
+
     # ---- the kernels line ---------------------------------------------------
     src = "src/repro_torch/kernels/csrc/"
     checks = record["checks"]
     entries = []
+    served_flash = f"flash_attention/{FLASH_CASES[1][0]}"
+    served_decode = f"decode_attention/{DECODE_CASES[0][0]}"
     for name, route_src, replaces, key, err_keys in (
             ("scalar_scan", src + "vector_step.cu",
              "src/repro/kernels/vector_step.py:98", "scalar_scan/fig1",
@@ -344,7 +681,13 @@ def main() -> int:
              "batched_scan/batched8", ("batched_scan/batched8",)),
             ("fused_quantiles", src + "vector_quantiles.cu",
              "src/repro/kernels/vector_quantiles.py:57", "fused_quantiles",
-             ("fused_quantiles",))):
+             ("fused_quantiles",)),
+            ("flash_attention", src + "flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:84", served_flash,
+             tuple(f"flash_attention/{c[0]}" for c in FLASH_CASES)),
+            ("decode_attention", src + "decode_attention.cu",
+             "src/repro/kernels/decode_attention.py:62", served_decode,
+             tuple(f"decode_attention/{c[0]}" for c in DECODE_CASES))):
         c = checks[key]
         entries.append({
             "name": name, "route": "cuda", "source": route_src,

@@ -8,7 +8,8 @@ Trimmed copy of ``repro.core.profiles``:
 * ``TokenLengths``, the per-request prompt / output token law;
 * ``ScalarService`` (one worker slot per request) and
   ``BatchedService`` (continuous batching, one decode step costs
-  ``max(t_compute_per_seq * batch, t_memory)`` seconds).
+  ``max(t_compute_per_seq * batch, t_memory)`` seconds);
+* ``apply_service_noise``, the execution-noise law of the stub engines.
 
 ``BatchedService`` has no ``from_arch`` here: calibrating it from a
 model's roofline needs the model stack and the card's own figures,
@@ -35,6 +36,10 @@ class LogNormalProfile:
     sigma: float = 0.45
     max_factor: float = 30.0       # truncate the tail (bounded work)
 
+    def sample(self, rng: np.random.Generator) -> float:
+        x = self.median * math.exp(self.sigma * rng.standard_normal())
+        return float(min(x, self.median * self.max_factor))
+
     def sample_batch(self, rng: np.random.Generator, n: int) -> np.ndarray:
         """Vectorized draw of the truncated law (bulk RNG stream)."""
         x = self.median * np.exp(self.sigma * rng.standard_normal(n))
@@ -56,6 +61,9 @@ class LogNormalProfile:
 class FixedProfile:
     name: str
     value: float
+
+    def sample(self, rng) -> float:
+        return self.value
 
     def sample_batch(self, rng, n: int) -> np.ndarray:
         return np.full(n, self.value)
@@ -82,6 +90,14 @@ def tailbench_profile(app: str) -> LogNormalProfile:
     return TAILBENCH_APPS[app]
 
 
+def apply_service_noise(dur: float, sigma: float, rng) -> float:
+    """Multiplicative log-normal execution noise; draws from ``rng`` only
+    when ``sigma > 0`` (zero noise consumes no stream)."""
+    if sigma > 0.0:
+        dur *= float(np.exp(sigma * rng.standard_normal()))
+    return dur
+
+
 @dataclass(frozen=True)
 class TokenLengths:
     """Per-request size distribution: log-normal prompt and output token
@@ -92,6 +108,13 @@ class TokenLengths:
     new_sigma: float = 0.5
     prompt_max: int = 2048
     new_max: int = 512
+
+    def sample(self, rng: np.random.Generator) -> tuple[int, int]:
+        z1, z2 = rng.standard_normal(2)
+        p = self.prompt_median * math.exp(self.prompt_sigma * z1)
+        n = self.new_median * math.exp(self.new_sigma * z2)
+        return (max(1, min(int(p), self.prompt_max)),
+                max(1, min(int(n), self.new_max)))
 
     def sample_batch(self, rng: np.random.Generator,
                      n: int) -> tuple[np.ndarray, np.ndarray]:

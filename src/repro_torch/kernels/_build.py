@@ -19,10 +19,14 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: <repo>/build/repro_torch_kernels for the src/ layout
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("vector_step", "vector_quantiles")
+SOURCES = ("vector_step", "vector_quantiles", "flash_attention",
+           "decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
-              "-Xptxas=-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+#: the vector kernels are bit-equal to their plain versions only without
+#: FMA contraction; the attention kernels keep it
+EXACT_FLAGS = ("--fmad=false",)
+EXACT = ("vector_step", "vector_quantiles")
 
 _loaded: dict = {}
 
@@ -37,9 +41,13 @@ def _nvcc() -> str:
     return path
 
 
+def flags(name: str) -> tuple:
+    return NVCC_FLAGS + (EXACT_FLAGS if name in EXACT else ())
+
+
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    key = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{key[:16]}.so"
 
 
@@ -55,7 +63,7 @@ def build(names=SOURCES) -> dict:
     procs = {}
     for n in todo:
         tmp = BUILD_DIR / f".{library_path(n).name}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        cmd = [nvcc, *flags(n), "-o", str(tmp), str(CSRC / f"{n}.cu")]
         procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT,
                                           text=True))

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import decode_attention as _decode
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref, vector_quantiles, vector_step
 
 
@@ -47,3 +49,23 @@ def fused_quantiles(lat: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     if _on_cuda(lat):
         return vector_quantiles.fused_quantiles(lat, counts)
     return ref.fused_quantiles(lat, counts)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None):
+    """q ``(B, S, H, hd)``; k, v ``(B, T, KV, hd)`` -> ``(B, S, H, hd)``."""
+    if _on_cuda(q):
+        return _flash.flash_attention(q, k, v, causal=causal, window=window)
+    return ref.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def decode_attention(q, k, v, *, lengths, key_positions=None, q_pos=None,
+                     window=None):
+    """q ``(B, H, hd)``; k, v ``(B, T, KV, hd)``; lengths ``(B,)`` ->
+    ``(B, H, hd)``."""
+    if _on_cuda(q):
+        return _decode.decode_attention(q, k, v, lengths=lengths,
+                                        key_positions=key_positions,
+                                        q_pos=q_pos, window=window)
+    return ref.decode_attention(q, k, v, lengths=lengths,
+                                key_positions=key_positions, q_pos=q_pos,
+                                window=window)

@@ -216,3 +216,83 @@ def fused_quantiles(lat: torch.Tensor, counts: torch.Tensor,
     out = quantile_lerp(a, b, pos - lo.to(torch.float32))
     return torch.where(counts[:, None] > 0, out,
                        out.new_full((), float("nan")))
+
+
+# ---------------------------------------------------------------------------
+# Attention (plain versions of flash_attention.cu / decode_attention.cu)
+# ---------------------------------------------------------------------------
+#: the additive mask value of the reference: finite, so a row whose every
+#: key is masked gets a uniform softmax (the mean of v), not NaN
+NEG_INF = -1e30
+
+
+def naive_attention(q, k, v, *, causal: bool, window=None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Materializing attention, op for op ``repro.kernels.ref
+    .naive_attention``.  q ``(B, S, H, hd)``; k, v ``(B, T, KV, hd)``;
+    query row ``i`` sits at position ``q_offset + i``, key ``j`` at
+    ``j``.  Logits in f32, scaled after the product, masked by adding
+    ``NEG_INF``; the probabilities are cast to ``v.dtype`` before P·V,
+    whose output has ``v.dtype``."""
+    b, s, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    qq = q.reshape(b, s, kv, g, hd)
+    logits = torch.einsum("bskgd,btkd->bkgst", qq.float(), k.float())
+    logits = logits * (hd ** -0.5)
+    q_pos = torch.arange(s, device=q.device) + q_offset
+    diff = q_pos[:, None] - torch.arange(t, device=q.device)[None, :]
+    ok = torch.ones_like(diff, dtype=torch.bool)
+    if causal:
+        ok &= diff >= 0
+    if window is not None:
+        ok &= diff < window
+    logits = logits + torch.where(ok, 0.0, NEG_INF).to(torch.float32)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(b, s, h, hd)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None,
+                    chunk: int = 512) -> torch.Tensor:
+    """Plain version of the ``flash_attention`` kernel: the reference's
+    query-chunked attention (``repro.kernels.ref.chunked_attention``),
+    ``naive_attention`` over query chunks of ``chunk`` rows so the f32
+    logits stay ``chunk x T`` per head.  Unlike the reference it takes
+    any S (the last chunk may be short)."""
+    s = q.shape[1]
+    if s <= chunk:
+        return naive_attention(q, k, v, causal=causal, window=window)
+    return torch.cat([naive_attention(q[:, i:i + chunk], k, v,
+                                      causal=causal, window=window,
+                                      q_offset=i)
+                      for i in range(0, s, chunk)], dim=1)
+
+
+def decode_attention(q, k, v, *, lengths, key_positions=None, q_pos=None,
+                     window=None) -> torch.Tensor:
+    """Plain version of the ``decode_attention`` kernel, op for op
+    ``repro.kernels.ref.decode_attention``: one query token per row.
+    q ``(B, H, hd)``; k, v ``(B, T, KV, hd)``; ``lengths`` ``(B,)``;
+    ``key_positions`` ``(B, T)`` absolute position of each cache slot
+    (-1 = empty; default ``arange(T)``); ``q_pos`` ``(B,)`` (default
+    ``lengths - 1``).  Key ``j`` counts when ``0 <= pos_j < length`` and,
+    with a window, ``pos_j > q_pos - window``."""
+    b, h, hd = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qq = q.reshape(b, kvh, g, hd)
+    logits = torch.einsum("bkgd,btkd->bkgt", qq.float(), k.float())
+    logits = logits * (hd ** -0.5)
+    if key_positions is None:
+        key_positions = torch.arange(t, device=q.device).expand(b, t)
+    valid = (key_positions < lengths[:, None]) & (key_positions >= 0)
+    if window is not None:
+        if q_pos is None:
+            q_pos = torch.clamp(lengths - 1, min=0)
+        valid &= key_positions > (q_pos[:, None] - window)
+    logits = torch.where(valid[:, None, None, :], logits,
+                         torch.full((), NEG_INF, device=q.device))
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgt,btkd->bkgd", probs, v)
+    return out.reshape(b, h, hd)

@@ -1,12 +1,20 @@
-"""One CLI for every canonical scenario, on the vector runtime.
+"""One CLI for every canonical scenario, on the vector runtime or on
+engines.
 
     PYTHONPATH=src python -m repro_torch.scenarios --list
     PYTHONPATH=src python -m repro_torch.scenarios server-failure --backend vector
     PYTHONPATH=src python -m repro_torch.scenarios steady --device cpu --duration 3
+    PYTHONPATH=src python -m repro_torch.scenarios server-failure --backend engine --stub
+    PYTHONPATH=src python -m repro_torch.scenarios steady --backend engine \
+        --arch phi3-mini-3.8b --duration 5
 
-The run goes to the CUDA card; ``--device cpu`` runs the kernels' plain
-PyTorch versions on the CPU instead.  The ``sim`` and ``engine``
-backends are not ported yet.
+``--backend vector`` (default) runs the batched grid runtime;
+``--backend engine`` drives the wall-clock runtime against
+profile-timed ``StubEngine`` replicas in accelerated virtual time
+(``--stub``, the default without ``--arch``) or against real
+``InferenceEngine`` replicas of a model (``--arch``).  The runs go to
+the CUDA card; ``--device cpu`` runs the kernels' plain PyTorch
+versions on the CPU instead.  The ``sim`` backend is not ported yet.
 """
 from __future__ import annotations
 
@@ -14,7 +22,7 @@ import argparse
 import sys
 
 from repro_torch import scenarios
-from repro_torch.core.runtime import run_scenario
+from repro_torch.core.runtime import EngineRuntime, VirtualClock, run_scenario
 
 
 def _print_report(rt, scenario, backend: str) -> None:
@@ -62,8 +70,8 @@ def main(argv=None) -> int:
     ap.add_argument("--backend", default="vector",
                     choices=["sim", "engine", "vector"])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                    help="where the vector runtime runs (cpu = the "
-                         "kernels' plain PyTorch versions)")
+                    help="where the vector runtime or the model runs "
+                         "(cpu = the kernels' plain PyTorch versions)")
     ap.add_argument("--duration", type=float, default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--app", default=None)
@@ -71,6 +79,18 @@ def main(argv=None) -> int:
     ap.add_argument("--slo", type=float, default=None,
                     help="latency SLO in seconds (telemetry violation frac)")
     ap.add_argument("--csv", default=None, help="write interval frames here")
+    # engine-backend options
+    ap.add_argument("--stub", action="store_true",
+                    help="engine backend: profile-timed StubEngine replicas "
+                         "in virtual time (default when --arch is absent)")
+    ap.add_argument("--arch", default=None,
+                    help="engine backend: real InferenceEngine replicas")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--max-new", type=int, default=4)
+    ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--time-scale", type=float, default=1.0,
+                    help="engine backend: virtual->wall time stretch")
     args = ap.parse_args(argv)
 
     if args.list or not args.name:
@@ -81,8 +101,8 @@ def main(argv=None) -> int:
             print(f"  {n:<18} {doc}")
         return 0
 
-    if args.backend != "vector":
-        ap.error(f"--backend {args.backend} is not ported yet (use vector)")
+    if args.backend == "sim":
+        ap.error("--backend sim is not ported yet (use vector or engine)")
     # overrides go to the scenario *builder* so event times scale with them
     overrides = {k: v for k, v in (("duration", args.duration),
                                    ("app", args.app),
@@ -90,9 +110,33 @@ def main(argv=None) -> int:
                                    ("slo", args.slo)) if v is not None}
     sc = scenarios.get(args.name, seed=args.seed, **overrides)
 
-    from repro_torch.vector import VectorConfig
-    rt = run_scenario(sc, args.backend,
-                      vector_config=VectorConfig(device=args.device))
+    if args.backend == "vector":
+        from repro_torch.vector import VectorConfig
+        rt = run_scenario(sc, args.backend,
+                          vector_config=VectorConfig(device=args.device))
+    elif args.arch:
+        from repro_torch.scenarios.backends import \
+            run_experiment_on_real_engines
+        rt = run_experiment_on_real_engines(
+            sc.compile(), arch=args.arch, smoke=args.smoke,
+            max_batch=args.max_batch, prompt_len=args.prompt_len,
+            max_new_tokens=args.max_new, seed=args.seed,
+            time_scale=args.time_scale, device=args.device)
+    else:
+        if args.time_scale != 1.0:
+            # stub service times and recorded latencies are unscaled
+            # profile seconds; stretching only the arrivals would
+            # distort utilization and SLO accounting
+            ap.error("--time-scale requires a real engine (--arch); "
+                     "the stub backend runs in virtual time already")
+        from repro_torch.scenarios.backends import build_stub_engines
+        exp = sc.compile()
+        clock = VirtualClock()
+        engines, factory = build_stub_engines(exp, clock, args.seed)
+        rt = EngineRuntime.from_experiment(
+            exp, engines, engine_factory=factory, clock=clock,
+            sleep=clock.sleep)
+        rt.run()
     _print_report(rt, sc, args.backend)
     if args.csv:
         _write_csv(rt, args.csv)

@@ -10,6 +10,17 @@ skips without one.  Run them on the machine with the card:
 card's machine need not have.)  The scans are bit-equal to the plain
 versions: both run the same f32 operations, sums over server lanes left
 to right, no FMA contraction.  The quantile head is bit-equal as well.
+
+The prefill kernel keeps the probabilities in f32 (as the Pallas kernel
+does) where its plain version (the reference oracle's arithmetic)
+rounds them to v's dtype before P·V; each side rounds its output once.
+In bf16, with ``|o| <= max|v|``: ``|kernel - plain| <= 2^-9 |o| + 2^-9
+sum_j p_j |v_j| + 2^-9 |o| <= 3 * 2^-9 max|v|``; the tests hold ``2^-7
+max|v|`` (``ATTN_TOL``), which leaves room for the f32 sums taken in
+another order.  In f32 nothing rounds but those sums: ``F32_TOL``.  The
+decode kernel rounds where the oracle does (probabilities to bf16, the
+output once), so only a rounding that f32 noise pushes across a bf16
+step can differ: within ``ATTN_TOL`` as well.
 """
 from __future__ import annotations
 
@@ -17,7 +28,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ref, vector_quantiles, vector_step
+from repro_torch.kernels import (decode_attention, flash_attention, ref,
+                                 vector_quantiles, vector_step)
+
+#: kernel vs plain attention, relative to max|v| (see the module doc)
+ATTN_TOL = 2.0 ** -7
+F32_TOL = 2e-5
 
 
 @pytest.fixture
@@ -95,3 +111,91 @@ def test_fused_quantiles_kernel_bit_equal_to_plain(cuda):
     p = ref.fused_quantiles(L, N).cpu().numpy()
     np.testing.assert_array_equal(k, p)
     assert np.isnan(k[0]).all() and not np.isnan(k[1:]).any()
+
+
+def _bf16(g, *shape, device, dtype=torch.bfloat16):
+    return torch.from_numpy(g.standard_normal(shape).astype(np.float32)) \
+        .to(device).to(dtype)
+
+
+def _within(kern, plain, v, tol=ATTN_TOL):
+    err = (kern.float() - plain.float()).abs().max().item()
+    assert err <= tol * v.float().abs().max().item(), err
+    return err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,T,H,KV,hd,causal,window", [
+    (32, 32, 4, 4, 96, True, None),        # phi3's head_dim, one tile
+    (100, 100, 4, 2, 96, True, None),      # ragged q and kv tiles, GQA
+    (64, 200, 8, 2, 128, True, 48),        # window with causal, S < T
+    (77, 77, 4, 1, 16, False, 20),         # window alone, MQA
+    (150, 40, 2, 2, 256, False, 30),       # rows past T + window: no key
+    (130, 130, 2, 2, 200, True, None),     # head_dim not a power of two
+])
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_flash_attention_kernel_close_to_plain(cuda, S, T, H, KV, hd,
+                                               causal, window, dtype):
+    g = np.random.default_rng((S, T, hd))
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    q = _bf16(g, 2, S, H, hd, device=cuda, dtype=dt)
+    k = _bf16(g, 2, T, KV, hd, device=cuda, dtype=dt)
+    v = _bf16(g, 2, T, KV, hd, device=cuda, dtype=dt)
+    before = flash_attention.flash_attention.launches
+    out = flash_attention.flash_attention(q, k, v, causal=causal,
+                                          window=window)
+    plain = ref.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.launches == before + 1
+    assert out.dtype == dt and out.shape == q.shape
+    assert torch.isfinite(out.float()).all()
+    _within(out, plain, v, F32_TOL if dtype == "f32" else ATTN_TOL)
+    if window is not None and S > T + window - 1:
+        # a row with no key averages v over every key, as the oracle does
+        mean = v.float().mean(1).repeat_interleave(H // KV, dim=1)
+        torch.testing.assert_close(out[:, T + window - 1:].float(),
+                                   mean[:, None].expand_as(
+                                       out[:, T + window - 1:]).float(),
+                                   rtol=0, atol=ATTN_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,H,KV,hd,window", [
+    (4, 192, 4, 4, 96, None),              # the serving shape, narrowed
+    (3, 300, 8, 2, 128, None),             # GQA, ragged last tile
+    (2, 64, 16, 1, 64, 24),                # MQA (G = 16), ring + window
+])
+@pytest.mark.parametrize("q_dtype", ["bf16", "f32"])
+def test_decode_attention_kernel_close_to_plain(cuda, B, T, H, KV, hd,
+                                                window, q_dtype):
+    g = np.random.default_rng((B, T, hd))
+    q = _bf16(g, B, H, hd, device=cuda, dtype=torch.float32
+              if q_dtype == "f32" else torch.bfloat16)
+    k = _bf16(g, B, T, KV, hd, device=cuda)
+    v = _bf16(g, B, T, KV, hd, device=cuda)
+    lengths = torch.from_numpy(g.integers(1, T + 1, B).astype(np.int32))
+    lengths[0] = 0                          # no valid key: mean of v
+    pos = np.tile(np.arange(T, dtype=np.int32), (B, 1))
+    if window is not None:                  # ring: slot j holds j + T*r
+        pos = pos + T * (np.arange(T) < 5)[None, :].astype(np.int32)
+    pos[:, -3:] = -1                        # empty slots
+    kp = torch.from_numpy(pos).to(cuda)
+    lengths = lengths.to(cuda)
+    if window is not None:
+        lengths = lengths + T
+    qpos = torch.clamp(lengths - 1, min=0)
+    before = decode_attention.decode_attention.launches
+    out = decode_attention.decode_attention(
+        q, k, v, lengths=lengths, key_positions=kp, q_pos=qpos,
+        window=window)
+    plain = ref.decode_attention(q, k, v, lengths=lengths, key_positions=kp,
+                                 q_pos=qpos, window=window)
+    torch.cuda.synchronize()
+    assert decode_attention.decode_attention.launches == before + 1
+    assert out.dtype == plain.dtype == torch.bfloat16
+    assert torch.isfinite(out.float()).all()
+    _within(out, plain, v)
+    if window is None:
+        mean = v[0].float().mean(0).repeat_interleave(H // KV, dim=0)
+        torch.testing.assert_close(out[0].float(), mean, rtol=0,
+                                   atol=ATTN_TOL)
