@@ -2,15 +2,16 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths on the card, the vector grid runtime
-and real-model serving:
+Drives the port's main paths on the card, the vector grid runtime and
+real-model serving of a dense attention model (phi3-mini-3.8b) and of a
+Mamba-2 model (mamba2-1.3b):
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together);
 3. holds every kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it: the vector kernels bit-equal, the
-   attention kernels within their stated tolerance;
+   attention and SSD kernels within their stated tolerances;
 4. runs four grids end to end through ``repro_torch.vector.run_cells``
    (the paper's Fig. 1 grid, a 16-server jsq grid, server-failure and
    batched-serving), checks that every vector kernel was launched and
@@ -21,11 +22,16 @@ and real-model serving:
    weights: a 128-token prompt and 8 greedy tokens, equal tokens and
    logits within ``F32_LOGIT_TOL`` with the weights in f32; the served
    bf16 weights, the card fed the CPU's tokens, within ``BF16_LOGIT_TOL``;
-6. serves phi3-mini-3.8b at full width through
+   then mamba2-1.3b the same way, with a 384-token prompt (the SSD scan
+   pads it into a second chunk), within ``MAMBA_F32_LOGIT_TOL`` and
+   ``MAMBA_BF16_LOGIT_TOL``;
+6. serves phi3-mini-3.8b and then mamba2-1.3b at full width through
    ``repro_torch.launch.serve.main`` (2 replicas sharing one copy of the
-   weights, open-loop clients, 10 s), checks that every request
-   completed with finite latencies and that both attention kernels were
-   launched, and prints the serving metrics;
+   weights, open-loop clients, 10 s each), checks that every request
+   completed with finite latencies and that the path's kernels were
+   launched (both attention kernels for phi3; ``ssd_scan`` once per
+   layer and prefill, warm-ups included, for mamba2), and prints the
+   serving metrics;
 7. times each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, with CUDA events (median of
    repeated runs);
@@ -78,11 +84,33 @@ ATTN_TOL = 2.0 ** -7
 #: differ by 1.17e-2, 1.5 steps, on this model in bf16)
 F32_LOGIT_TOL = 1e-3
 BF16_LOGIT_TOL = 3e-2
-#: the serving run of the main path (launch.serve flags)
+#: the same for mamba2-1.3b at full width, 2 layers, a 384-token prompt.
+#: f32: this random-weight model turns f32 noise into up to ~1e-3 of
+#: max|logit| (on the CPU, weights perturbed by ~1 ulp move the logits by
+#: up to 8.3e-4, the prefill's by 3e-4) and the decode's conv cache
+#: rounds the f32 projections to bf16, where a sum order can tip a
+#: rounding; the card read 7.142e-4 (H100 80GB HBM3, 700 W).
+#: bf16: 4 logit rounding steps, as for phi3; the card read 4.831e-3
+MAMBA_F32_LOGIT_TOL = 1e-3
+MAMBA_BF16_LOGIT_TOL = 3e-2
+#: SSD kernel vs plain version: both widen the same values to f32 and
+#: differ only by the order of f32 sums and FMA contraction, whatever the
+#: input dtype, so every case is held to the f32 rule of
+#: tests/test_kernels.py, |k - p| <= SSD_TOL (1 + |p|), widened by
+#: L 2^-24 max|p|: the f32 rounding of the chunk's cumulative sum of L
+#: decays, which every exp(cum_t - cum_s) inherits (as
+#: tests/test_torch_cuda_kernels.py does)
+SSD_TOL = 2e-4
+#: the serving runs of the main path (launch.serve flags); mamba2's
+#: 512-token prompts cross the scan's chunk boundary (256)
 SERVE_ARGS = ["--arch", "phi3-mini-3.8b", "--replicas", "2",
               "--max-batch", "4", "--prompt-len", "128", "--max-new", "32",
               "--clients", "2", "--qps", "2", "--duration", "10",
               "--policy", "jsq", "--seed", "0"]
+MAMBA_SERVE_ARGS = ["--arch", "mamba2-1.3b", "--replicas", "2",
+                    "--max-batch", "4", "--prompt-len", "512",
+                    "--max-new", "32", "--clients", "2", "--qps", "2",
+                    "--duration", "10", "--policy", "jsq", "--seed", "0"]
 #: the decode cache length of that run (make_warmed_engine: prompt + new
 #: tokens + 32) and the prefill bucket of its 128-token prompts
 SERVE_MAX_LEN = 128 + 32 + 32
@@ -428,6 +456,107 @@ def check_decode(device, label, B, T, H, KV, hd, window, ring) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+#: (label, b, s, h, p, n, chunk, dtype): mamba2-1.3b's prefill at the
+#: serving run's 512-token prompt (two chunks), a 384-token prompt that
+#: ops.ssd_scan pads into a second chunk, batch 4 at 2048 tokens, and
+#: the served shape in f32
+SSD_CASES = [
+    ("mamba2 s=512 (served)", 1, 512, 64, 64, 128, 256, "bf16"),
+    ("mamba2 s=384 (padded)", 1, 384, 64, 64, 128, 256, "bf16"),
+    ("mamba2 b=4 s=2048", 4, 2048, 64, 64, 128, 256, "bf16"),
+    ("mamba2 s=512 f32", 1, 512, 64, 64, 128, 256, "f32"),
+]
+
+
+def ssd_op_time(b: int, s: int, h: int, p: int, n: int, L: int,
+                dtype: str) -> float:
+    """Seconds of the chunked scan's operations at the card's peak rates,
+    counting the causal pairs t >= s only: per (batch row, chunk) C.B^T
+    once (L (L + 1) N: B and C are one group, shared by the heads), at
+    the bf16 tensor-core rate where B and C are bf16 (their products are
+    exact in f32); per head M.x (L (L + 1) P) and C.h with the state
+    update (4 L P N), at the f32 rate (M and the state are f32)."""
+    chunks = -(-s // L)
+    cb = b * chunks * L * (L + 1) * n
+    rest = b * chunks * h * (L * (L + 1) * p + 4 * L * p * n)
+    cb_rate = BF16_OPS_PER_S if dtype == "bf16" else F32_OPS_PER_S
+    return cb / cb_rate + rest / F32_OPS_PER_S
+
+
+def ssd_bf16_state(x, dt, A, B, C, chunk: int):
+    """The control of the SSD check: the plain version run a chunk at a
+    time with the carried state rounded to bf16 between chunks (and at
+    the end), what a kernel that kept its state in bf16 would give."""
+    from repro_torch.kernels import ref
+    ys, h = [], None
+    for c0 in range(0, x.shape[1], chunk):
+        sl = slice(c0, c0 + chunk)
+        y, h = ref.ssd_chunked(x[:, sl], dt[:, sl], A, B[:, sl], C[:, sl],
+                               chunk=chunk, h0=h)
+        h = h.bfloat16().float()
+        ys.append(y)
+    return torch.cat(ys, 1), h
+
+
+def check_ssd(device, label, b, s, h, p, n, chunk, dtype) -> dict:
+    """The SSD kernel (through ``ops.ssd_scan``, which pads s to the
+    chunk) against its plain version on the same padded inputs, and the
+    bf16-state control against the same bound, which it must exceed."""
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device=device).manual_seed(s * 3 + b)
+    et = torch.bfloat16 if dtype == "bf16" else torch.float32
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=device)
+    x = rnd(b, s, h, p).to(et)
+    # the model's ranges: dt = softplus(. - 4.6), A = -exp(1.386) +- noise
+    dt = torch.nn.functional.softplus(rnd(b, s, h) - 4.6 + 2.0 * rnd(b, s, h))
+    A = -torch.exp(1.386 + 0.5 * rnd(h))
+    B, C = rnd(b, s, 1, n).to(et), rnd(b, s, 1, n).to(et)
+    pad = (-s) % chunk
+
+    def padt(a):
+        return torch.nn.functional.pad(a, [0, 0] * (a.dim() - 2) + [0, pad])
+    xp, dtp, Bp, Cp = (padt(a) for a in (x, dt, B, C))
+    y, hN = ops.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    py, ph = ref.ssd_chunked(xp, dtp, A, Bp, Cp, chunk=chunk)
+    cy, ch = ssd_bf16_state(xp, dtp, A, Bp, Cp, chunk)
+    py, cy = py[:, :s], cy[:, :s]
+    torch.cuda.synchronize()
+    if not (torch.isfinite(y).all() and torch.isfinite(hN).all()):
+        fail(f"ssd_scan {label}: output not finite")
+    err, used, control = {}, {}, {}
+    for name, k, q, c in (("y", y, py, cy), ("hN", hN, ph, ch)):
+        atol = SSD_TOL + chunk * 2.0 ** -24 * q.abs().max().item()
+        # the largest share of its bound that an element uses (<= 1)
+        used[name] = ((k - q).abs() / (atol + SSD_TOL * q.abs())).max().item()
+        control[name] = ((c - q).abs()
+                         / (atol + SSD_TOL * q.abs())).max().item()
+        err[name] = (k - q).abs().max().item()
+        if not used[name] <= 1.0:
+            fail(f"ssd_scan {label}: |kernel - plain| of {name} exceeds "
+                 f"{atol:.3e} + {SSD_TOL}|plain| (max abs {err[name]:.3e})")
+    if not max(control.values()) > 1.0:
+        fail(f"ssd_scan {label}: the bound does not tell a bf16 state from "
+             f"the plain version ({control})")
+    moved = nbytes((xp, dtp, A, Bp, Cp, y, hN))
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = ssd_op_time(b, s, h, p, n, chunk, dtype)
+    return {"shape": {"b": b, "s": s, "h": h, "p": p, "n": n,
+                      "chunk": chunk, "dtype": dtype, "padded_to": s + pad},
+            "max_abs_err": max(err.values()), "max_abs_err_y": err["y"],
+            "max_abs_err_hN": err["hN"], "rtol": SSD_TOL,
+            "bound_used_y": used["y"], "bound_used_hN": used["hN"],
+            "bf16_state_bound_used_y": control["y"],
+            "bf16_state_bound_used_hN": control["hN"],
+            "ms": cuda_ms(lambda: ops.ssd_scan(x, dt, A, B, C, chunk=chunk)),
+            "plain_ms": cuda_ms(lambda: ref.ssd_chunked(xp, dtp, A, Bp, Cp,
+                                                        chunk=chunk)),
+            "library_ms": None,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def greedy(cfg, params, prompt, max_len: int, steps: int, forced=None):
     """Prefill ``prompt`` (1, S) and decode ``steps`` tokens greedily, or
     feeding ``forced`` tokens; -> (logits [steps + 1, V] f32 on the CPU,
@@ -445,27 +574,39 @@ def greedy(cfg, params, prompt, max_len: int, steps: int, forced=None):
     return torch.cat(out), toks
 
 
-def check_full_width(device) -> dict:
-    """phi3-mini-3.8b at full width, 2 layers: the same seeded weights on
-    the CPU (plain versions) and on the card (kernels)."""
+def check_full_width(device, arch: str = "phi3-mini-3.8b",
+                     prompt_len: int = 128, f32_tol: float = F32_LOGIT_TOL,
+                     bf16_tol: float = BF16_LOGIT_TOL) -> dict:
+    """``arch`` at full width, 2 layers: the same seeded weights on the
+    CPU (plain versions) and on the card (kernels)."""
     from dataclasses import replace
 
     from repro_torch.configs.base import get_config
     from repro_torch.models import param as P
     from repro_torch.models import registry as R
-    cfg = replace(get_config("phi3-mini-3.8b"), num_layers=2)
+    cfg = replace(get_config(arch), num_layers=2)
     params = R.init_params(cfg, torch.Generator().manual_seed(0))
-    prompt = torch.randint(0, cfg.vocab_size, (1, 128), dtype=torch.int32,
+    prompt = torch.randint(0, cfg.vocab_size, (1, prompt_len),
+                           dtype=torch.int32,
                            generator=torch.Generator().manual_seed(1))
-    steps, max_len = 8, 128 + 8 + 32
-    rec = {"cfg": {"num_layers": cfg.num_layers, "d_model": cfg.d_model,
-                   "heads": cfg.num_heads, "head_dim": cfg.resolved_head_dim,
-                   "vocab": cfg.vocab_size, "params": R.count_params(cfg)},
-           "prompt": 128, "steps": steps}
+    steps, max_len = 8, prompt_len + 8 + 32
+    rec = {"cfg": {"name": cfg.name, "num_layers": cfg.num_layers,
+                   "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+                   "params": R.count_params(cfg)},
+           "prompt": prompt_len, "steps": steps}
+    if cfg.mamba is not None:
+        m = cfg.mamba
+        rec["cfg"].update(heads=m.n_heads(cfg.d_model), head_dim=m.head_dim,
+                          d_state=m.d_state, chunk=m.chunk)
+    else:
+        rec["cfg"].update(heads=cfg.num_heads,
+                          head_dim=cfg.resolved_head_dim)
+
+    def rel_steps(a, b):
+        return ((a - b).abs().max(-1).values / b.abs().max(-1).values)
 
     def rel(a, b):
-        return ((a - b).abs().max(-1).values
-                / b.abs().max(-1).values).max().item()
+        return rel_steps(a, b).max().item()
 
     # f32 weights: greedy on each side, the tokens must be equal
     p32 = P.tree_map(lambda t: t.float(), params)
@@ -478,15 +619,19 @@ def check_full_width(device) -> dict:
     top2 = cpu_l.topk(2, dim=-1).values
     margin = ((top2[:, 0] - top2[:, 1]) / cpu_l.abs().max(-1).values).min()
     rec["f32"] = {"cpu_tokens": cpu_t, "card_tokens": gpu_t,
-                  "logits_rel_err": err32, "tol": F32_LOGIT_TOL,
+                  "logits_rel_err": err32, "tol": f32_tol,
+                  "logits_rel_err_per_step": rel_steps(gpu_l,
+                                                       cpu_l).tolist(),
                   "min_top2_gap_rel": margin.item(), "cpu_s": cpu_s}
-    print(f"full width f32: tokens cpu {cpu_t} card {gpu_t}, logits rel "
-          f"err {err32:.3e} (smallest top-2 gap {margin.item():.3e})",
+    print(f"full width {arch} f32: tokens cpu {cpu_t} card {gpu_t}, logits "
+          f"rel err {err32:.3e} (smallest top-2 gap {margin.item():.3e})",
           flush=True)
     if gpu_t != cpu_t:
-        fail("full width f32: greedy tokens differ between card and CPU")
-    if not err32 <= F32_LOGIT_TOL:
-        fail(f"full width f32: logits rel err {err32:.3e} > {F32_LOGIT_TOL}")
+        fail(f"full width {arch} f32: greedy tokens differ between card "
+             f"and CPU")
+    if not err32 <= f32_tol:
+        fail(f"full width {arch} f32: logits rel err {err32:.3e} > "
+             f"{f32_tol}")
     # the served bf16 weights: the card follows the CPU's tokens
     cpu_l, cpu_t = greedy(cfg, params, prompt, max_len, steps)
     gpu_l, gpu_t = greedy(cfg, P.tree_map(lambda t: t.to(device), params),
@@ -496,21 +641,23 @@ def check_full_width(device) -> dict:
     agree = sum(a == b for a, b in zip(cpu_t, gpu_t))
     rec["bf16"] = {"cpu_tokens": cpu_t, "card_argmax": gpu_t,
                    "argmax_agree": agree, "logits_rel_err": err16,
-                   "tol": BF16_LOGIT_TOL}
-    print(f"full width bf16 (card fed the CPU's tokens): argmax agrees at "
-          f"{agree} of {steps + 1} steps, logits rel err {err16:.3e}",
-          flush=True)
-    if not err16 <= BF16_LOGIT_TOL:
-        fail(f"full width bf16: logits rel err {err16:.3e} > "
-             f"{BF16_LOGIT_TOL}")
+                   "logits_rel_err_per_step": rel_steps(gpu_l,
+                                                        cpu_l).tolist(),
+                   "tol": bf16_tol}
+    print(f"full width {arch} bf16 (card fed the CPU's tokens): argmax "
+          f"agrees at {agree} of {steps + 1} steps, logits rel err "
+          f"{err16:.3e}", flush=True)
+    if not err16 <= bf16_tol:
+        fail(f"full width {arch} bf16: logits rel err {err16:.3e} > "
+             f"{bf16_tol}")
     return rec
 
 
-def run_serving() -> dict:
-    """The serving main path, as a user starts it."""
+def run_serving(args=SERVE_ARGS) -> dict:
+    """A serving main path, as a user starts it."""
     from repro_torch.launch import serve
     t0 = time.perf_counter()
-    report = serve.main(SERVE_ARGS)
+    report = serve.main(args)
     report["phase_s"] = time.perf_counter() - t0
     torch.cuda.synchronize()
     if report["n"] < 1 or report["dropped"] or \
@@ -547,8 +694,8 @@ def main() -> int:
         fail("torch.cuda.is_available() is False: this script needs a "
              "CUDA GPU")
     from repro_torch.kernels import (_build, decode_attention,
-                                     flash_attention, vector_quantiles,
-                                     vector_step)
+                                     flash_attention, ssd_scan,
+                                     vector_quantiles, vector_step)
     from repro_torch.vector import VectorConfig, run_cells
 
     # a float32 product on the card runs in full float32, as on the CPU
@@ -598,13 +745,18 @@ def main() -> int:
         record["checks"][f"decode_attention/{case[0]}"] = rec
         print(f"check decode_attention {case[0]}: {json.dumps(rec)}",
               flush=True)
+    for case in SSD_CASES:
+        rec = check_ssd(device, *case)
+        record["checks"][f"ssd_scan/{case[0]}"] = rec
+        print(f"check ssd_scan {case[0]}: {json.dumps(rec)}", flush=True)
 
     # ---- main path 1, the vector grid runtime, end to end ------------------
     vector_kernels = (vector_step.scalar_scan, vector_step.batched_scan,
                       vector_quantiles.fused_quantiles)
     attention_kernels = (flash_attention.flash_attention,
                          decode_attention.decode_attention)
-    for k in vector_kernels + attention_kernels:
+    all_kernels = vector_kernels + attention_kernels + (ssd_scan.ssd_scan,)
+    for k in all_kernels:
         k.launches = 0
     results = {}
     record["e2e"] = {}
@@ -647,9 +799,11 @@ def main() -> int:
 
     # ---- full width, reduced depth: the card against the CPU ---------------
     record["full_width"] = check_full_width(device)
+    record["full_width_mamba"] = check_full_width(
+        device, "mamba2-1.3b", 384, MAMBA_F32_LOGIT_TOL, MAMBA_BF16_LOGIT_TOL)
 
     # ---- main path 2, serving phi3-mini-3.8b at full width -----------------
-    for k in vector_kernels + attention_kernels:
+    for k in all_kernels:
         k.launches = 0
     torch.cuda.synchronize()
     record["serving"] = run_serving()
@@ -666,12 +820,39 @@ def main() -> int:
           f"decode step {r['decode_step_ms']:.2f} ms, "
           f"{r['tokens_per_s']:.1f} tokens/s", flush=True)
 
+    # ---- main path 3, serving mamba2-1.3b at full width --------------------
+    from repro_torch.configs.base import get_config
+    for k in all_kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    record["serving_mamba"] = r = run_serving(MAMBA_SERVE_ARGS)
+    mamba_launches = {k.__name__: k.launches for k in all_kernels}
+    print(f"launches on the mamba2 serving path: {mamba_launches}",
+          flush=True)
+    layers = get_config("mamba2-1.3b").num_layers
+    replicas = int(MAMBA_SERVE_ARGS[MAMBA_SERVE_ARGS.index("--replicas")
+                                    + 1])
+    want = layers * (r["prefills"] + replicas)      # requests + warm-ups
+    n_ssd = mamba_launches["ssd_scan"]
+    if n_ssd < 1 or n_ssd != want or r["prefills"] != r["n"]:
+        fail(f"mamba2 serving: ssd_scan launched {n_ssd} times, expected "
+             f"{layers} x ({r['prefills']} prefills + {replicas} warm-ups) "
+             f"= {want} for {r['n']} requests")
+    launches["ssd_scan"] = n_ssd
+    print(f"serving mamba2-1.3b: {r['n']} requests, p50 "
+          f"{r['p50_ms']:.1f} ms, p95 {r['p95_ms']:.1f} ms, p99 "
+          f"{r['p99_ms']:.1f} ms, TTFT p50 {r['ttft_p50_ms']:.1f} ms, "
+          f"prefill {r['prefill_ms']:.2f} ms, decode step "
+          f"{r['decode_step_ms']:.2f} ms, {r['tokens_per_s']:.1f} tokens/s",
+          flush=True)
+
     # ---- the kernels line ---------------------------------------------------
     src = "src/repro_torch/kernels/csrc/"
     checks = record["checks"]
     entries = []
     served_flash = f"flash_attention/{FLASH_CASES[1][0]}"
     served_decode = f"decode_attention/{DECODE_CASES[0][0]}"
+    served_ssd = f"ssd_scan/{SSD_CASES[0][0]}"
     for name, route_src, replaces, key, err_keys in (
             ("scalar_scan", src + "vector_step.cu",
              "src/repro/kernels/vector_step.py:98", "scalar_scan/fig1",
@@ -687,7 +868,10 @@ def main() -> int:
              tuple(f"flash_attention/{c[0]}" for c in FLASH_CASES)),
             ("decode_attention", src + "decode_attention.cu",
              "src/repro/kernels/decode_attention.py:62", served_decode,
-             tuple(f"decode_attention/{c[0]}" for c in DECODE_CASES))):
+             tuple(f"decode_attention/{c[0]}" for c in DECODE_CASES)),
+            ("ssd_scan", src + "ssd_scan.cu",
+             "src/repro/kernels/ssd_scan.py:66", served_ssd,
+             tuple(f"ssd_scan/{c[0]}" for c in SSD_CASES))):
         c = checks[key]
         entries.append({
             "name": name, "route": "cuda", "source": route_src,

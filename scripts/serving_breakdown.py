@@ -1,30 +1,32 @@
 """Where the time of one serving engine step goes, on the card.
 
-    python3 scripts/serving_breakdown.py [--device cuda|cpu] [--smoke]
-        [--layers N] [--steps N]
+    python3 scripts/serving_breakdown.py [--arch phi3-mini-3.8b|mamba2-1.3b]
+        [--device cuda|cpu] [--smoke] [--layers N] [--steps N]
 
-Builds phi3-mini-3.8b at full width (random weights from a seed, bf16,
-as ``launch.serve`` serves it; ``--layers`` cuts the depth, ``--smoke``
-takes the CPU-test config) in one ``InferenceEngine`` with the serving
-run's shape (``chip_smoke.py``: max batch 4, 128-token prompts, cache
-length 192), fills its four slots, and reports:
+Builds ``--arch`` (phi3-mini-3.8b by default) at full width (random
+weights from a seed, bf16, as ``launch.serve`` serves it; ``--layers``
+cuts the depth, ``--smoke`` takes the CPU-test config) in one
+``InferenceEngine`` with the serving run's shape (``chip_smoke.py``: max
+batch 4, 32 new tokens, 128-token prompts for phi3 and 512-token ones
+for mamba2), fills its four slots, and reports:
 
-* the host-clock time of a prefill (128 tokens) and of a batch-4 decode
-  step (median of ``--steps``; every step ends with the tokens read back
-  to the host, so it covers the card's work);
+* the host-clock time of a prefill and of a batch-4 decode step (median
+  of ``--steps``; every step ends with the tokens read back to the host,
+  so it covers the card's work);
 * the host phases of the decode steps, from ``cProfile`` (cumulative
   seconds of the port's own functions: norms, projections, RoPE, the
-  attention wrapper, the MLP, the unembedding, the read-back; the rest
-  of the step total is the cache write, the residual adds and the
-  embedding);
+  attention wrapper, the MLP, for mamba2 the mixer's projections, conv
+  steps and output, the unembedding, the read-back; the rest of the step
+  total is the cache write, the residual adds and the embedding);
 * on the card, the device time of the decode steps and of a prefill by
-  kernel group (attention kernels, matrix products, the rest) from
-  ``torch.profiler``, the kernels launched per step and the device's
-  busy share of the step's wall time;
+  kernel group (attention and SSD kernels, matrix products, the rest)
+  from ``torch.profiler``, the kernels launched per step and the
+  device's busy share of the step's wall time;
 * the decode step's bound: the bf16 weights read once, over the card's
   memory rate.
 
-The record goes to ``chiprun_out/serving_breakdown.json``.  cProfile
+The record goes to ``chiprun_out/serving_breakdown.json``
+(``serving_breakdown_mamba2-1.3b.json`` for mamba2).  cProfile
 adds a cost per Python call, so its phase times are shares, not
 absolutes: the step times are taken with profiling off.
 """
@@ -48,7 +50,9 @@ import torch  # noqa: E402
 
 #: H100 SXM device memory rate (NVIDIA data sheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
-PROMPT, NEW, MAX_BATCH = 128, 32, 4
+NEW, MAX_BATCH = 32, 4
+#: the prompt length of each arch's serving run in chip_smoke.py
+PROMPT = {"phi3-mini-3.8b": 128, "mamba2-1.3b": 512}
 #: (module suffix, function) of the port whose cumulative time is a phase
 PHASES = {
     ("models/layers.py", "apply_norm"): "norms",
@@ -57,6 +61,10 @@ PHASES = {
     ("kernels/ops.py", "decode_attention"): "attention (wrapper + kernel)",
     ("models/attention.py", "_out_proj"): "output projection",
     ("models/layers.py", "apply_mlp"): "mlp",
+    ("models/mamba.py", "_project"): "mamba projections",
+    ("models/mamba.py", "_conv_step"): "mamba conv steps",
+    ("models/mamba.py", "_out"): "mamba gate, norm, output projection",
+    ("models/mamba.py", "decode_mamba"): "mamba mixer (total)",
     ("models/layers.py", "unembed"): "unembedding",
     ("serving/engine.py", "_decode_once"): "step total",
 }
@@ -89,6 +97,8 @@ def group(name: str) -> str:
         return "decode_attention kernel"
     if "flash_attention" in n:
         return "flash_attention kernel"
+    if "ssd_scan" in n:
+        return "ssd_scan kernel"
     if any(s in n for s in ("gemm", "gemv", "nvjet", "cutlass", "xmma",
                             "matmul", "splitk")):
         return "matrix products (cuBLAS)"
@@ -120,6 +130,8 @@ def device_time(fn) -> tuple:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="phi3-mini-3.8b",
+                    choices=sorted(PROMPT))
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--layers", type=int, default=None)
@@ -134,7 +146,8 @@ def main(argv=None) -> int:
     from repro_torch.serving.engine import InferenceEngine
 
     device = resolve_device(args.device)
-    cfg = get_config("phi3-mini-3.8b" + ("-smoke" if args.smoke else ""))
+    cfg = get_config(args.arch + ("-smoke" if args.smoke else ""))
+    prompt = PROMPT[args.arch]
     if args.layers:
         cfg = replace(cfg, num_layers=args.layers)
     params = R.init_params(
@@ -142,7 +155,7 @@ def main(argv=None) -> int:
     weight_bytes = sum(t.numel() * t.element_size()
                        for _, t in P.leaves(params))
     eng = InferenceEngine(cfg, params, max_batch=MAX_BATCH,
-                          max_len=PROMPT + NEW + 32)
+                          max_len=prompt + NEW + 32)
     rng = np.random.default_rng(args.seed)
 
     def sync():
@@ -150,11 +163,11 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
 
     # warm-up request (kernel build and load), then fill every slot
-    eng.submit(rng.integers(0, cfg.vocab_size, PROMPT), 2, -1)
+    eng.submit(rng.integers(0, cfg.vocab_size, prompt), 2, -1)
     eng.run_until_idle()
     prefill_s = []
     for i in range(MAX_BATCH):
-        eng.submit(rng.integers(0, cfg.vocab_size, PROMPT), 10 ** 6, i)
+        eng.submit(rng.integers(0, cfg.vocab_size, prompt), 10 ** 6, i)
         sync()
         t0 = time.perf_counter()
         eng.step()
@@ -175,7 +188,7 @@ def main(argv=None) -> int:
                          if device.type == "cuda" else "cpu"),
               "arch": cfg.name, "num_layers": cfg.num_layers,
               "params": R.count_params(cfg), "weight_bytes": weight_bytes,
-              "max_batch": MAX_BATCH, "prompt": PROMPT,
+              "max_batch": MAX_BATCH, "prompt": prompt,
               "cache_len": eng.max_len,
               "prefill_s": prefill_s, "decode_step_s": step_s,
               "decode_steps_s": steps,
@@ -183,7 +196,7 @@ def main(argv=None) -> int:
               "host_phases_s_per_step": {
                   k: v / n_prof for k, v in host_phases(decode_steps).items()}}
     print(f"{cfg.name} ({cfg.num_layers} layers, {weight_bytes / 1e9:.2f} "
-          f"GB of weights) on {record['device']}: prefill {PROMPT} tokens "
+          f"GB of weights) on {record['device']}: prefill {prompt} tokens "
           f"{statistics.median(prefill_s) * 1e3:.2f} ms, decode step "
           f"(batch {MAX_BATCH}) {step_s * 1e3:.2f} ms, bound "
           f"{record['decode_bound_s'] * 1e3:.3f} ms", flush=True)
@@ -210,21 +223,25 @@ def main(argv=None) -> int:
                   f"x{count // n_prof}  {name}")
         # one more prefill, into a slot freed by hand
         eng.active[0] = None
-        eng.submit(rng.integers(0, cfg.vocab_size, PROMPT), 2, 99)
+        eng.submit(rng.integers(0, cfg.vocab_size, prompt), 2, 99)
         dev, n, top = device_time(eng.step)
         record["prefill_top_kernels_us"] = top
         record["prefill_device_s_by_group"] = {k: v / 1e6
                                                for k, v in dev.items()}
         record["prefill_kernels"] = n
-        print(f"  prefill device {sum(dev.values()) / 1e3:.3f} ms, "
-              f"{n} kernels", flush=True)
+        total = sum(dev.values())
+        record["prefill_ssd_share"] = dev.get("ssd_scan kernel", 0.0) / total
+        print(f"  prefill device {total / 1e3:.3f} ms, {n} kernels, "
+              f"ssd_scan {record['prefill_ssd_share']:.1%}", flush=True)
         for k, v in sorted(dev.items(), key=lambda kv: -kv[1]):
             print(f"    {v / 1e3:8.3f} ms  {k}")
         for us, count, name in top:
             print(f"      {us / 1e3:8.3f} ms  x{count}  {name}")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "serving_breakdown.json").write_text(json.dumps(record, indent=1))
+    name = ("serving_breakdown.json" if args.arch == "phi3-mini-3.8b"
+            else f"serving_breakdown_{args.arch}.json")
+    (out / name).write_text(json.dumps(record, indent=1))
     return 0
 
 

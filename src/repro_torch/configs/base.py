@@ -3,8 +3,9 @@
 Copy of ``repro.configs.base``: the layer kinds, ``MoEConfig``,
 ``MambaConfig`` and ``ArchConfig`` with ``smoke()``, and the registry.
 Only the architectures whose layers the port runs are registered
-(``phi3-mini-3.8b``); any other name raises ``KeyError``.  The shape
-cells of the TPU dry-run are not part of this package.
+(``phi3-mini-3.8b``, ``mamba2-1.3b``); any other name raises
+``KeyError``.  The shape cells of the TPU dry-run are not part of this
+package.
 """
 from __future__ import annotations
 
@@ -152,7 +153,8 @@ def register(cfg: ArchConfig) -> ArchConfig:
 
 
 def _populate() -> None:
-    import repro_torch.configs.phi3_mini_3_8b  # noqa: F401  (registers)
+    import repro_torch.configs.mamba2_1_3b  # noqa: F401  (registers)
+    import repro_torch.configs.phi3_mini_3_8b  # noqa: F401
 
 
 def get_config(name: str) -> ArchConfig:

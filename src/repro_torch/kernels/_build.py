@@ -20,11 +20,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 #: <repo>/build/repro_torch_kernels for the src/ layout
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("vector_step", "vector_quantiles", "flash_attention",
-           "decode_attention")
+           "decode_attention", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 #: the vector kernels are bit-equal to their plain versions only without
-#: FMA contraction; the attention kernels keep it
+#: FMA contraction; the attention and SSD kernels keep it
 EXACT_FLAGS = ("--fmad=false",)
 EXACT = ("vector_step", "vector_quantiles")
 

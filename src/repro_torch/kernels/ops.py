@@ -11,6 +11,7 @@ import torch
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref, vector_quantiles, vector_step
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def _on_cuda(x: torch.Tensor) -> bool:
@@ -69,3 +70,26 @@ def decode_attention(q, k, v, *, lengths, key_positions=None, q_pos=None,
     return ref.decode_attention(q, k, v, lengths=lengths,
                                 key_positions=key_positions, q_pos=q_pos,
                                 window=window)
+
+
+def ssd_scan(x, dt, A, B, C, *, chunk: int = 256, h0=None):
+    """Mamba-2 SSD.  x ``(b, s, h, p)``; dt ``(b, s, h)``; A ``(h,)``; B, C
+    ``(b, s, 1, n)`` -> (y ``(b, s, h, p)`` f32, final state ``(b, h, p,
+    n)`` f32).  Any ``s``: the sequence is padded with zeros to a multiple
+    of ``chunk`` (``dt = 0`` is state-neutral: decay 1, zero update) and
+    ``y`` is cut back to ``s``."""
+    s = x.shape[1]
+    pad = (-s) % chunk
+    if pad:
+        def padt(a):
+            return torch.nn.functional.pad(
+                a, [0, 0] * (a.dim() - 2) + [0, pad])
+        x, dt, B, C = padt(x), padt(dt), padt(B), padt(C)
+    if _on_cuda(x):
+        y, h = _ssd.ssd_scan(x.contiguous(), dt.contiguous(),
+                             A.contiguous(), B.contiguous(), C.contiguous(),
+                             chunk=chunk,
+                             h0=None if h0 is None else h0.contiguous())
+    else:
+        y, h = ref.ssd_chunked(x, dt, A, B, C, chunk=chunk, h0=h0)
+    return (y[:, :s] if pad else y), h

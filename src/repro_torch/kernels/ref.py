@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the vector runtime's kernels.
+"""Plain PyTorch versions of the port's kernels.
 
 These are the step math of ``repro.vector.runtime`` (``_waterfill``,
 ``_scalar_step``, ``_batched_step``) and the sort-based quantile head of
@@ -7,7 +7,9 @@ These are the step math of ``repro.vector.runtime`` (``_waterfill``,
 They run wherever the tensors lie: the CPU path of ``kernels.ops``
 takes them, and on the card they are what each CUDA kernel is held
 against.  Every operation is a separate PyTorch op, so nothing is
-contracted into an FMA.
+contracted into an FMA.  The sections at the end are the plain versions
+of the model kernels: attention (``repro.kernels.ref``'s attention
+oracles) and the Mamba-2 SSD scan (``ssd_naive``, ``ssd_chunked``).
 
 Shapes follow the scan: consts ``c``/``fail_slot`` ``[C, S]`` (and
 ``tm``/``tc``/``new_mean`` ``[C, 1]`` for the batched family), ``dt`` a
@@ -296,3 +298,77 @@ def decode_attention(q, k, v, *, lengths, key_positions=None, q_pos=None,
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkgt,btkd->bkgd", probs, v)
     return out.reshape(b, h, hd)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD (plain versions of ssd_scan.cu)
+# ---------------------------------------------------------------------------
+#: the reference's pre-exp mask value (``repro.kernels.ref.ssd_chunked``)
+SSD_MASK = -1e30
+
+
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """Widened to f32 (f64 stays f64: an f64 run is the yardstick of the
+    f32 versions' rounding)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def ssd_naive(x, dt, A, B, C, h0=None):
+    """Per-timestep recurrence oracle, op for op ``repro.kernels.ref
+    .ssd_naive``.  x ``(b, s, h, p)``; dt ``(b, s, h)``; A ``(h,)``; B, C
+    ``(b, s, 1, n)``; any float dtypes, widened to f32 -> (y ``(b, s, h,
+    p)`` f32, final state ``(b, h, p, n)`` f32)."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    xf, dtf = _wide(x), _wide(dt)
+    Bf, Cf = _wide(B[:, :, 0]), _wide(C[:, :, 0])
+    A = _wide(A)
+    state = (xf.new_zeros((b, h, p, n)) if h0 is None else _wide(h0))
+    ys = []
+    for t in range(s):
+        decay = torch.exp(A * dtf[:, t])                     # (b, h)
+        state = state * decay[..., None, None]
+        state = state + torch.einsum("bh,bhp,bn->bhpn", dtf[:, t],
+                                     xf[:, t], Bf[:, t])
+        ys.append(torch.einsum("bhpn,bn->bhp", state, Cf[:, t]))
+    return torch.stack(ys, dim=1), state
+
+
+def ssd_chunked(x, dt, A, B, C, *, chunk: int, h0=None):
+    """Plain version of the ``ssd_scan`` kernel: the chunked SSD of
+    ``repro.kernels.ref.ssd_chunked``, op for op, one chunk at a time
+    (the ``(b, h, p, n)`` state carried from chunk to chunk), in f32 on
+    inputs of any float dtype.  Within a chunk of L steps:
+    ``M[t, s] = (C_t . B_s) exp(cum_t - cum_s) dt_s`` for ``t >= s`` (the
+    mask applied before the exp, where ``s > t`` could overflow), ``y =
+    M x + exp(cum_t) C_t . h``, ``h = exp(cum_L) h + sum_s exp(cum_L -
+    cum_s) dt_s x_s (x) B_s``.  ``s`` must be a multiple of ``chunk``."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
+    L = chunk
+    A = _wide(A)
+    causal = torch.tril(torch.ones((L, L), dtype=torch.bool,
+                                   device=x.device))
+    mask = torch.full((), SSD_MASK, dtype=A.dtype, device=x.device)
+    hprev = (A.new_zeros((b, h, p, n)) if h0 is None else _wide(h0))
+    ys = []
+    for c0 in range(0, s, L):
+        xc = _wide(x[:, c0:c0 + L])                          # (b, L, h, p)
+        dtc = _wide(dt[:, c0:c0 + L])                        # (b, L, h)
+        Bc = _wide(B[:, c0:c0 + L, 0])                       # (b, L, n)
+        Cc = _wide(C[:, c0:c0 + L, 0])
+        a = A * dtc
+        cum = torch.cumsum(a, dim=1)                         # (b, L, h)
+        seg = cum[:, :, None, :] - cum[:, None, :, :]        # (b, t, s, h)
+        decay = torch.exp(torch.where(causal[None, :, :, None], seg, mask))
+        cb = torch.einsum("btn,bsn->bts", Cc, Bc)
+        M = cb[..., None] * decay * dtc[:, None, :, :]       # (b, t, s, h)
+        y = torch.einsum("btsh,bshp->bthp", M, xc)
+        y = y + torch.einsum("blh,bln,bhpn->blhp", torch.exp(cum), Cc, hprev)
+        w = torch.exp(cum[:, -1:, :] - cum) * dtc            # (b, L, h)
+        upd = torch.einsum("blh,bln,blhp->bhpn", w, Bc, xc)
+        hprev = hprev * torch.exp(cum[:, -1, :])[:, :, None, None] + upd
+        ys.append(y)
+    return torch.cat(ys, dim=1), hprev

@@ -3,9 +3,11 @@
 Copy of ``repro.models.registry`` in PyTorch.  Batch dicts:
   prefill: {"tokens": (B, S)}
   decode:  tokens (B,), positions (B,) + cache
-Modality frontends and encoder-decoder models are not ported yet.
+The dense attention family (phi3) and the Mamba-2 family (mamba2) run;
+modality frontends and encoder-decoder models are not ported yet, and
+neither are the layer kinds ``transformer._check_kind`` refuses.
 Everything runs where the parameters lie: on the card through the CUDA
-attention kernels, on the CPU through their plain versions.
+attention and SSD kernels, on the CPU through their plain versions.
 """
 from __future__ import annotations
 
@@ -91,7 +93,9 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, max_len: int, *,
 
     ``lengths`` (B,) supports right-padded ragged prompts: logits are taken
     at ``lengths-1``; pad K/V slots carry positions >= length so decode
-    masks them out.
+    masks them out.  A Mamba layer's state would absorb the pads, so a
+    model with Mamba layers is prefilled at the prompt's exact length
+    (the engine's ``_exact_prefill``), as in the JAX package.
     """
     x, positions = _embed_input(cfg, params, batch)
     x, cache = T.run_stack_prefill(cfg, params["groups"], x,

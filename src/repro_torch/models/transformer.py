@@ -1,25 +1,27 @@
 """Decoder stack assembly: pattern groups of blocks, run group by group.
 
 Copy of ``repro.models.transformer`` in PyTorch for the dense attention
-stack.  Parameters and caches are stacked along a leading group axis,
-as in the JAX package; where JAX scans over that axis (``lax.scan``),
-the port runs a Python loop over groups and hands each block views of
-its group's slices.  Only the ``ATTN`` layer kind with a dense MLP is
-ported: sliding-window attention, Mamba, MoE, parallel blocks and cross
-attention raise ``NotImplementedError``.
+and Mamba-2 stacks.  Parameters and caches are stacked along a leading
+group axis, as in the JAX package; where JAX scans over that axis
+(``lax.scan``), the port runs a Python loop over groups and hands each
+block views of its group's slices.  The ``ATTN`` and ``MAMBA`` layer
+kinds with a dense MLP (or none, ``d_ff = 0``) are ported:
+sliding-window attention, MoE, parallel blocks and cross attention
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ATTN, ArchConfig
+from repro_torch.configs.base import ATTN, MAMBA, ArchConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models.layers import apply_mlp, apply_norm, mlp_specs, norm_specs
 from repro_torch.models.param import stack_specs, tree_map
 
 
 def _check_kind(cfg: ArchConfig, pos: int, kind: str) -> None:
-    if kind != ATTN:
+    if kind not in (ATTN, MAMBA):
         raise NotImplementedError(f"layer kind {kind!r} ({cfg.name}) is not "
                                   f"ported yet")
     if cfg.moe is not None and cfg.moe_positions and pos in cfg.moe_positions:
@@ -35,7 +37,11 @@ def _check_kind(cfg: ArchConfig, pos: int, kind: str) -> None:
 # ---------------------------------------------------------------------------
 def block_specs(cfg: ArchConfig, pos: int, kind: str) -> dict:
     _check_kind(cfg, pos, kind)
-    out = {"norm1": norm_specs(cfg), "attn": attn_mod.attention_specs(cfg)}
+    out = {"norm1": norm_specs(cfg)}
+    if kind == MAMBA:
+        out["mamba"] = mamba_mod.mamba_specs(cfg)
+    else:
+        out["attn"] = attn_mod.attention_specs(cfg)
     if cfg.d_ff > 0:
         out["norm2"] = norm_specs(cfg)
         out["mlp"] = mlp_specs(cfg)
@@ -51,6 +57,8 @@ def stack_block_specs(cfg: ArchConfig, pattern, n_groups: int) -> dict:
 def cache_specs_for_kind(cfg: ArchConfig, kind: str, batch: int,
                          max_len: int) -> dict:
     _check_kind(cfg, -1, kind)
+    if kind == MAMBA:
+        return mamba_mod.mamba_cache_specs(cfg, batch)
     return attn_mod.make_kv_cache_specs(cfg, batch, max_len)
 
 
@@ -77,20 +85,29 @@ def _ffn(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 
 def apply_block_seq(cfg: ArchConfig, p: dict, kind: str, x: torch.Tensor, *,
                     positions: torch.Tensor):
-    """-> (x, (k, v)): the block's output and its rotated K/V."""
+    """-> (x, payload): the block's output and what its decode cache is
+    built from: the rotated ``(k, v)`` of an attention block; the cache
+    itself (final SSD state and conv tails) of a Mamba block."""
     h = apply_norm(cfg, p["norm1"], x)
-    mix, k, v = attn_mod.self_attention(cfg, p["attn"], h,
-                                        positions=positions, causal=True)
-    return _ffn(cfg, p, x + mix), (k, v)
+    if kind == MAMBA:
+        mix, payload = mamba_mod.apply_mamba(cfg, p["mamba"], h)
+    else:
+        mix, k, v = attn_mod.self_attention(cfg, p["attn"], h,
+                                            positions=positions, causal=True)
+        payload = (k, v)
+    return _ffn(cfg, p, x + mix), payload
 
 
 def apply_block_decode(cfg: ArchConfig, p: dict, kind: str, x: torch.Tensor,
                        cache: dict, *, positions: torch.Tensor):
     """x: (B, D) single token; ``cache`` updated in place."""
     h = apply_norm(cfg, p["norm1"], x)
-    mix, _ = attn_mod.decode_self_attention(cfg, p["attn"], h, cache,
-                                            positions=positions,
-                                            lengths=positions + 1)
+    if kind == MAMBA:
+        mix = mamba_mod.decode_mamba(cfg, p["mamba"], h, cache)
+    else:
+        mix, _ = attn_mod.decode_self_attention(cfg, p["attn"], h, cache,
+                                                positions=positions,
+                                                lengths=positions + 1)
     return _ffn(cfg, p, x + mix)
 
 
@@ -118,9 +135,11 @@ def run_stack_prefill(cfg: ArchConfig, groups: dict, x: torch.Tensor, *,
         gp = group_slice(groups, g)
         caches = {}
         for i, kind in enumerate(pattern):
-            x, (k, v) = apply_block_seq(cfg, gp[f"pos{i}"], kind, x,
-                                        positions=positions)
-            caches[f"pos{i}"] = _prefill_cache(k, v, positions, max_len)
+            x, payload = apply_block_seq(cfg, gp[f"pos{i}"], kind, x,
+                                         positions=positions)
+            caches[f"pos{i}"] = (payload if kind == MAMBA else
+                                 _prefill_cache(*payload, positions,
+                                                max_len))
         per_group.append(caches)
     stacked = {name: {leaf: torch.stack([c[name][leaf] for c in per_group])
                       for leaf in per_group[0][name]}

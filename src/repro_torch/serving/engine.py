@@ -3,10 +3,12 @@
 Copy of ``repro.serving.engine`` in PyTorch.  Slot-based: ``max_batch``
 sequences decode together; free slots are refilled by prefilling queued
 prompts (prompt lengths are bucket-padded, as the reference does to
-bound its jit recompiles).  Step-driven so the TailBench++ harness can
-drive it in real time: each ``step()`` performs one prefill (if a
-request is waiting and a slot is free) or one batched decode step, and
-returns completion events.
+bound its jit recompiles, except for models with Mamba layers, which
+prefill at the prompt's exact length: a Mamba state would absorb the
+pads).  Step-driven so the TailBench++
+harness can drive it in real time: each ``step()`` performs one prefill
+(if a request is waiting and a slot is free) or one batched decode
+step, and returns completion events.
 
 The engine runs where its parameters lie: on the card, prefill and
 decode go through the CUDA attention kernels.  Its decode cache is
@@ -31,7 +33,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import MAMBA, ArchConfig
 from repro_torch.core.profiles import apply_service_noise
 from repro_torch.models import param as P
 from repro_torch.models import registry as R
@@ -158,6 +160,8 @@ class InferenceEngine:
                                   device=self.device)
         self.active: list[Optional[Request]] = [None] * max_batch
         self.queue: list[Request] = []
+        # a mamba state needs exact-length prefill (no pads)
+        self._exact_prefill = MAMBA in cfg.resolved_pattern
         self.completed: list[Completion] = []
         self.reset_counters()
 
@@ -206,7 +210,7 @@ class InferenceEngine:
     def _admit(self, req: Request, slot: int):
         t0 = time.perf_counter()
         L = len(req.prompt)
-        bucket = min(_bucket(L), self.max_len)
+        bucket = L if self._exact_prefill else min(_bucket(L), self.max_len)
         toks = np.zeros((1, bucket), np.int32)
         toks[0, :L] = req.prompt           # right-pad; pads masked via positions
         logits, cache1, _ = R.prefill(

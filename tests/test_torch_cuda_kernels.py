@@ -21,6 +21,21 @@ another order.  In f32 nothing rounds but those sums: ``F32_TOL``.  The
 decode kernel rounds where the oracle does (probabilities to bf16, the
 output once), so only a rounding that f32 noise pushes across a bf16
 step can differ: within ``ATTN_TOL`` as well.
+
+The SSD scan widens its inputs to f32 first, as its plain version does;
+the two differ by the order of f32 sums and FMA contraction, whatever
+the input dtype.  So for bf16 inputs as for f32 the kernel and the plain
+version are both held against the same scan run in f64 on the same
+(widened) values, within the f32 bound of ``tests/test_kernels.py``,
+rtol = atol = 2e-4, widened by ``L * 2^-24 * max|y|``: the f32 rounding
+of the chunk's cumulative sum of L decays, which every
+``exp(cum_t - cum_s)`` inherits.  The reference's own test (chunks <= 64,
+|y| <= ~50) never reaches that term; at mamba2's chunk of 256 with
+unit-normal inputs (|y| up to ~230) the plain f32 version lies up to
+1.4e-3 from the f64 scan on the CPU, the kernel 5e-4 from the plain
+version on the card, both past 2e-4 + 2e-4|y| alone.  A state kept in
+bf16 misses this bound by an order of magnitude (chip_smoke.py's
+control).
 """
 from __future__ import annotations
 
@@ -28,12 +43,16 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import (decode_attention, flash_attention, ref,
-                                 vector_quantiles, vector_step)
+from repro_torch.kernels import (decode_attention, flash_attention, ops,
+                                 ref, ssd_scan, vector_quantiles,
+                                 vector_step)
 
 #: kernel vs plain attention, relative to max|v| (see the module doc)
 ATTN_TOL = 2.0 ** -7
 F32_TOL = 2e-5
+#: SSD kernel and plain version vs the f64 scan (the reference's f32
+#: Pallas-vs-oracle bound, widened as the module doc says)
+SSD_TOL = dict(rtol=2e-4, atol=2e-4)
 
 
 @pytest.fixture
@@ -199,3 +218,74 @@ def test_decode_attention_kernel_close_to_plain(cuda, B, T, H, KV, hd,
         mean = v[0].float().mean(0).repeat_interleave(H // KV, dim=0)
         torch.testing.assert_close(out[0].float(), mean, rtol=0,
                                    atol=ATTN_TOL)
+
+
+def _ssd_inputs(g, device, b, s, h, p, n, dtype, h0):
+    def f(*shape):
+        return torch.from_numpy(g.standard_normal(shape).astype(np.float32)
+                                ).to(device)
+    dt_ = torch.float32 if dtype == "f32" else torch.bfloat16
+    x = f(b, s, h, p).to(dt_)
+    dt = torch.nn.functional.softplus(f(b, s, h))
+    A = -torch.exp(f(h) * 0.5)
+    B, C = f(b, s, 1, n).to(dt_), f(b, s, 1, n).to(dt_)
+    return x, dt, A, B, C, (f(b, h, p, n) if h0 else None)
+
+
+def _ssd_f32_close(got, truth, chunk: int) -> None:
+    """An f32 scan against the f64 scan (module doc)."""
+    atol = SSD_TOL["atol"] + chunk * 2.0 ** -24 * truth.abs().max().item()
+    torch.testing.assert_close(got.double(), truth, rtol=SSD_TOL["rtol"],
+                               atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,p,n,chunk,h0", [
+    (2, 128, 4, 16, 16, 32, False),        # the reference test's shapes
+    (1, 256, 2, 64, 128, 64, False),
+    (2, 64, 8, 32, 64, 32, True),
+    (1, 512, 64, 64, 128, 256, False),     # mamba2-1.3b's prefill
+    (2, 256, 3, 64, 128, 128, True),       # the served widths, h0
+    (1, 96, 2, 24, 40, 96, True),          # ragged tiles: P, N, L
+])
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_ssd_scan_kernel_close_to_plain(cuda, b, s, h, p, n, chunk, h0,
+                                        dtype):
+    g = np.random.default_rng((b, s, p, n))
+    x, dt, A, B, C, hh = _ssd_inputs(g, cuda, b, s, h, p, n, dtype, h0)
+    before = ssd_scan.ssd_scan.launches
+    y, hN = ssd_scan.ssd_scan(x, dt, A, B, C, chunk=chunk, h0=hh)
+    py, ph = ref.ssd_chunked(x, dt, A, B, C, chunk=chunk, h0=hh)
+    torch.cuda.synchronize()
+    assert ssd_scan.ssd_scan.launches == before + 1
+    assert y.dtype == hN.dtype == torch.float32
+    assert torch.isfinite(y).all() and torch.isfinite(hN).all()
+    ty, th = ref.ssd_chunked(*(a.double() for a in (x, dt, A, B, C)),
+                             chunk=chunk,
+                             h0=None if hh is None else hh.double())
+    for got in (y, py):
+        _ssd_f32_close(got, ty, chunk)
+    for got in (hN, ph):
+        _ssd_f32_close(got, th, chunk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [384, 45])
+def test_ssd_scan_ops_pads_on_the_card(cuda, s):
+    """``ops.ssd_scan`` pads a ragged sequence with dt = 0 and launches the
+    kernel; chained halves equal the whole sequence."""
+    g = np.random.default_rng(s)
+    x, dt, A, B, C, _ = _ssd_inputs(g, cuda, 1, s, 8, 64, 128, "bf16", False)
+    before = ssd_scan.ssd_scan.launches
+    y, hN = ops.ssd_scan(x, dt, A, B, C, chunk=256)
+    assert ssd_scan.ssd_scan.launches == before + 1
+    ny, nh = ref.ssd_naive(*(a.double() for a in (x, dt, A, B, C)))
+    _ssd_f32_close(y, ny, 256)
+    _ssd_f32_close(hN, nh, 256)
+    k = s // 2
+    ya, ha = ops.ssd_scan(x[:, :k], dt[:, :k], A, B[:, :k], C[:, :k],
+                          chunk=32)
+    yb, hb = ops.ssd_scan(x[:, k:], dt[:, k:], A, B[:, k:], C[:, k:],
+                          chunk=32, h0=ha)
+    _ssd_f32_close(torch.cat([ya, yb], 1), ny, 32)
+    _ssd_f32_close(hb, nh, 32)

@@ -78,7 +78,7 @@ def test_config_is_the_reference_config():
                   "resolved_pattern"):
             assert getattr(port, f) == getattr(ref, f), (name, f)
     with pytest.raises(KeyError, match="not ported"):
-        get_config("mamba2-1.3b")
+        get_config("gemma3-12b")
 
 
 def test_count_params_full_width():
