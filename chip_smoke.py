@@ -29,9 +29,9 @@ Mamba-2 model (mamba2-1.3b):
    ``repro_torch.launch.serve.main`` (2 replicas sharing one copy of the
    weights, open-loop clients, 10 s each), checks that every request
    completed with finite latencies and that the path's kernels were
-   launched (both attention kernels for phi3; ``ssd_scan`` once per
-   layer and prefill, warm-ups included, for mamba2), and prints the
-   serving metrics;
+   launched (both attention kernels for phi3, ``flash_attention`` once
+   per layer and prefill; ``ssd_scan`` the same for mamba2; warm-ups
+   included), and prints the serving metrics;
 7. times each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, with CUDA events (median of
    repeated runs);
@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -69,10 +70,11 @@ TIMED_RUNS = 10
 #: grid rows on the card vs the same cells on the CPU (the tolerances of
 #: tests/test_torch_vector_parity.py against the JAX reference)
 ROW_RTOL = 1e-6
-#: attention kernel vs plain version, relative to max|v|: the prefill
-#: kernel keeps the probabilities in f32 where the plain version rounds
-#: them to bf16 (<= 3 * 2^-9, see tests/test_torch_cuda_kernels.py); the
-#: decode kernel rounds where the plain version does
+#: attention kernel vs plain version, relative to max|v|: in bf16 the
+#: prefill kernel rounds the unnormalised probabilities to bf16 where the
+#: plain version rounds the normalised ones, and each rounds its output
+#: once (see tests/test_torch_cuda_kernels.py); the decode kernel rounds
+#: where the plain version does
 ATTN_TOL = 2.0 ** -7
 #: full-width logits, card vs CPU, relative to max|logit|.  f32 weights:
 #: only f32 sums taken in other orders differ, and the bf16 cache entries
@@ -115,6 +117,33 @@ MAMBA_SERVE_ARGS = ["--arch", "mamba2-1.3b", "--replicas", "2",
 #: tokens + 32) and the prefill bucket of its 128-token prompts
 SERVE_MAX_LEN = 128 + 32 + 32
 SERVE_BUCKET = 128
+
+
+def ptxas_report(log: str) -> list:
+    """One entry per kernel of a build log (``nvcc -Xptxas=-v``): its
+    name with its template arguments (``flash_attention_tc_kernel<6>``),
+    its registers, then its stack frame and spills."""
+    out, name, spills = [], "?", ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            # the mangled name's length-prefixed identifiers
+            mangled = m.group(1)
+            idents = [mangled[d.end():d.end() + int(d.group())]
+                      for d in re.finditer(r"\d+", mangled)]
+            name = next((i for i in idents if i.endswith("kernel")),
+                        mangled)
+            targs = re.search(r"kernelI(.*?)EEv", mangled)
+            if targs:
+                args = re.sub(r"Li(\d+)E", r",\1", targs.group(1))
+                args = re.sub(r"\d+__nv_bfloat16", "bf16,", args)
+                name += "<" + args.replace(",,", ",").strip(",") + ">"
+        elif "spill" in ln:
+            spills = ln.strip()
+        elif "Used" in ln:
+            out.append(f"{name}: {ln.split('info    :')[-1].strip()}; "
+                       f"{spills}")
+    return out
 
 
 def fail(msg: str) -> None:
@@ -716,8 +745,8 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(logs) or 'cached'})", flush=True)
     for name, log in logs.items():
-        regs = [ln.strip() for ln in log.splitlines() if "Used" in ln]
-        print(f"  {name}: {'; '.join(regs)}")
+        for line in ptxas_report(log):
+            print(f"  {name}: {line}")
 
     device = torch.device("cuda")
     grids = build_grids()
@@ -814,6 +843,15 @@ def main() -> int:
             fail(f"kernel {name} was not launched on the serving path")
     launches.update(serve_launches)
     r = record["serving"]
+    from repro_torch.configs.base import get_config
+    layers = get_config("phi3-mini-3.8b").num_layers
+    replicas = int(SERVE_ARGS[SERVE_ARGS.index("--replicas") + 1])
+    want = layers * (r["prefills"] + replicas)      # requests + warm-ups
+    if serve_launches["flash_attention"] != want or r["prefills"] != r["n"]:
+        fail(f"phi3 serving: flash_attention launched "
+             f"{serve_launches['flash_attention']} times, expected {layers} "
+             f"x ({r['prefills']} prefills + {replicas} warm-ups) = {want} "
+             f"for {r['n']} requests")
     print(f"serving phi3-mini-3.8b: {r['n']} requests, p50 "
           f"{r['p50_ms']:.1f} ms, p95 {r['p95_ms']:.1f} ms, p99 "
           f"{r['p99_ms']:.1f} ms, TTFT p50 {r['ttft_p50_ms']:.1f} ms, "
@@ -821,7 +859,6 @@ def main() -> int:
           f"{r['tokens_per_s']:.1f} tokens/s", flush=True)
 
     # ---- main path 3, serving mamba2-1.3b at full width --------------------
-    from repro_torch.configs.base import get_config
     for k in all_kernels:
         k.launches = 0
     torch.cuda.synchronize()

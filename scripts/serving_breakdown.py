@@ -231,8 +231,11 @@ def main(argv=None) -> int:
         record["prefill_kernels"] = n
         total = sum(dev.values())
         record["prefill_ssd_share"] = dev.get("ssd_scan kernel", 0.0) / total
+        record["prefill_flash_share"] = dev.get("flash_attention kernel",
+                                                0.0) / total
         print(f"  prefill device {total / 1e3:.3f} ms, {n} kernels, "
-              f"ssd_scan {record['prefill_ssd_share']:.1%}", flush=True)
+              f"ssd_scan {record['prefill_ssd_share']:.1%}, flash_attention "
+              f"{record['prefill_flash_share']:.1%}", flush=True)
         for k, v in sorted(dev.items(), key=lambda kv: -kv[1]):
             print(f"    {v / 1e3:8.3f} ms  {k}")
         for us, count, name in top:

@@ -7,12 +7,14 @@ of ``q (B, S, H, hd)`` over ``k, v (B, T, KV, hd)``, all bf16 (the
 served model) or all f32, with GQA (query head ``h`` reads KV head
 ``h // (H // KV)``), an optional causal mask and an optional sliding
 window, for any S, T and ``hd <= 256``.  Its plain PyTorch version is
-``ref.flash_attention``.  The kernel keeps the probabilities in f32, as
-the Pallas kernel does; the plain version rounds them to v's dtype
-before P·V, as the oracle does: in f32 the two agree up to the order of
-f32 sums, in bf16 they differ by the rounding of the probabilities and
-one rounding of the output each.  ``flash_attention.launches`` counts
-the launches.
+``ref.flash_attention``.  bf16 inputs run the kernel's tensor-core body,
+which rounds the unnormalised probabilities to bf16 before P·V and
+divides by their f32 sum at the end; the plain version rounds the
+normalised ones, as the oracle does: the two differ by those roundings
+and one rounding of the output each.  f32 inputs run the CUDA-core body,
+which keeps the probabilities in f32, as the Pallas kernel does: it
+agrees with the plain version up to the order of f32 sums.
+``flash_attention.launches`` counts the launches.
 """
 from __future__ import annotations
 
