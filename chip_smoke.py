@@ -30,7 +30,8 @@ Mamba-2 model (mamba2-1.3b):
    weights, open-loop clients, 10 s each), checks that every request
    completed with finite latencies and that the path's kernels were
    launched (both attention kernels for phi3, ``flash_attention`` once
-   per layer and prefill; ``ssd_scan`` the same for mamba2; warm-ups
+   per layer and prefill, ``decode_attention`` once per layer and decode
+   step; ``ssd_scan`` once per layer and prefill for mamba2; warm-ups
    included), and prints the serving metrics;
 7. times each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, with CUDA events (median of
@@ -418,10 +419,14 @@ def check_flash(device, label, B, S, H, KV, hd, window) -> dict:
 
 
 #: (label, B, T, H, KV, hd, window, ring): the serving run's decode
-#: (max batch 4, T = its cache length) and one ring/window case
+#: (max batch 4, T = its cache length), one ring/window case, gemma3-12b's
+#: decode shape (its 1024-slot sliding-window ring) and the served shape
+#: at batch 1, as a lightly loaded replica runs it
 DECODE_CASES = [
     ("phi3 serving B=4 T=192", 4, SERVE_MAX_LEN, 32, 32, 96, None, False),
     ("ring+window B=4 T=512", 4, 512, 32, 8, 128, 384, True),
+    ("gemma3-12b B=4 T=1024 ring", 4, 1024, 16, 8, 256, 1024, True),
+    ("phi3 B=1 T=192", 1, SERVE_MAX_LEN, 32, 32, 96, None, False),
 ]
 
 
@@ -465,9 +470,17 @@ def check_decode(device, label, B, T, H, KV, hd, window, ring) -> dict:
     if window is not None:
         valid &= pos > q_pos[:, None] - window
     keys = int(valid.sum().item())               # (row, key) pairs
+    # the function needs each valid slot's key and value for every KV
+    # head, and a row with no valid key every value (its mean)
+    slot = KV * hd * k.element_size()
+    empty = int((valid.sum(1) == 0).sum().item())
+    small = nbytes((q, out, lengths, pos, q_pos))
     bound_ms, bound_by = attention_bound(
-        nbytes((q, k, v, out, lengths, pos, q_pos)),
+        small + 2 * slot * keys + slot * T * empty,
         4.0 * hd * keys * H, BF16_OPS_PER_S)
+    # the older, full-cache form of the bound: every slot read once
+    full_cache_bound_ms, _ = attention_bound(
+        small + nbytes((k, v)), 4.0 * hd * keys * H, BF16_OPS_PER_S)
     qt = q[:, :, None, :]
     kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
     mask = valid[:, None, None, :]
@@ -482,7 +495,8 @@ def check_decode(device, label, B, T, H, KV, hd, window, ring) -> dict:
             "ms": cuda_ms(lambda: da.decode_attention(q, k, v, **kw)),
             "plain_ms": cuda_ms(lambda: ref.decode_attention(q, k, v, **kw)),
             "library_ms": library_time(library),
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "full_cache_bound_ms": full_cache_bound_ms}
 
 
 #: (label, b, s, h, p, n, chunk, dtype): mamba2-1.3b's prefill at the
@@ -852,6 +866,12 @@ def main() -> int:
              f"{serve_launches['flash_attention']} times, expected {layers} "
              f"x ({r['prefills']} prefills + {replicas} warm-ups) = {want} "
              f"for {r['n']} requests")
+    want = layers * (r["decode_steps"] + replicas)   # one per warm-up
+    if serve_launches["decode_attention"] != want:
+        fail(f"phi3 serving: decode_attention launched "
+             f"{serve_launches['decode_attention']} times, expected "
+             f"{layers} x ({r['decode_steps']} decode steps + {replicas} "
+             f"warm-ups) = {want}")
     print(f"serving phi3-mini-3.8b: {r['n']} requests, p50 "
           f"{r['p50_ms']:.1f} ms, p95 {r['p95_ms']:.1f} ms, p99 "
           f"{r['p99_ms']:.1f} ms, TTFT p50 {r['ttft_p50_ms']:.1f} ms, "

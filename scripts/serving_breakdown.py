@@ -93,8 +93,8 @@ def host_phases(fn) -> dict:
 
 def group(name: str) -> str:
     n = name.lower()
-    if "decode_attention" in n:
-        return "decode_attention kernel"
+    if any(s in n for s in ("decode_logits", "decode_pv", "decode_combine")):
+        return "decode_attention kernels"
     if "flash_attention" in n:
         return "flash_attention kernel"
     if "ssd_scan" in n:

@@ -8,11 +8,11 @@ would promote mixed operands (a bf16 activation against f32 weights),
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.param import Spec
@@ -72,9 +72,31 @@ def mlp_specs(cfg: ArchConfig, d_ff: Optional[int] = None) -> dict:
     return out
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x * sigmoid(x)`` as ``jax.nn.silu`` computes it: the sigmoid is
+    ``1 / (1 + exp(-x))``, every step rounded to x's dtype (in bf16
+    ``F.silu``, which rounds once, differs in about 40 % of values)."""
+    return x * torch.reciprocal(1.0 + torch.exp(-x))
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(c: float, dtype: torch.dtype) -> float:
+    return torch.tensor(c, dtype=dtype).item()
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh GeLU as ``jax.nn.gelu`` (``approximate=True``, its
+    default) computes it: ``x * 0.5 (1 + tanh(c1 (x + c2 x^3)))`` with
+    ``c1 = sqrt(2 / pi)`` and ``c2 = 0.044715`` first rounded to x's dtype,
+    every step rounded to x's dtype (``F.gelu(approximate="tanh")``
+    rounds once)."""
+    c1 = _rounded(math.sqrt(2.0 / math.pi), x.dtype)
+    c2 = _rounded(0.044715, x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c1 * (x + c2 * (x * x * x)))))
+
+
 def _act(cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    # jax.nn.gelu defaults to the tanh approximation
-    return F.silu(x) if cfg.act == "silu" else F.gelu(x, approximate="tanh")
+    return silu(x) if cfg.act == "silu" else gelu(x)
 
 
 def apply_mlp(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:

@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import matmul, rms_norm
+from repro_torch.models.layers import matmul, rms_norm, silu
 from repro_torch.models.param import Spec
 
 F32 = torch.float32
@@ -70,14 +70,6 @@ def mamba_cache_specs(cfg: ArchConfig, batch: int) -> dict:
     }
 
 
-def _silu(x: torch.Tensor) -> torch.Tensor:
-    """``x * sigmoid(x)`` as ``jax.nn.silu`` computes it: the sigmoid is
-    ``1 / (1 + exp(-x))``, every step rounded to x's dtype (in bf16 this
-    differs from ``F.silu``, which rounds once, in about a third of the
-    values)."""
-    return x * (1.0 / (1.0 + torch.exp(-x)))
-
-
 def _softplus(x: torch.Tensor) -> torch.Tensor:
     """``log(1 + exp(x))`` as ``jax.nn.softplus`` computes it
     (``jnp.logaddexp(x, 0)``: ``max(x, 0) + log1p(exp(-|x|))``)."""
@@ -93,7 +85,7 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     out = pad[:, 0:s, :] * w[0]
     for i in range(1, k):
         out = out + pad[:, i:i + s, :] * w[i]
-    return _silu(out + b.to(out.dtype))
+    return silu(out + b.to(out.dtype))
 
 
 def _conv_step(cache: torch.Tensor, xt: torch.Tensor, w: torch.Tensor,
@@ -103,7 +95,7 @@ def _conv_step(cache: torch.Tensor, xt: torch.Tensor, w: torch.Tensor,
     K - 1 rows are the new cache.  In f32, as in the JAX package."""
     window = torch.cat([cache, xt[:, None, :]], dim=1)
     out = torch.einsum("bkc,kc->bc", window.to(F32), w.to(F32))
-    return _silu(out + b).to(xt.dtype), window
+    return silu(out + b).to(xt.dtype), window
 
 
 def _project(cfg: ArchConfig, p: dict, u: torch.Tensor):
@@ -122,7 +114,7 @@ def _out(cfg: ArchConfig, p: dict, y: torch.Tensor, xh: torch.Tensor,
     di = xh.shape[-2] * xh.shape[-1]
     y = y + xh.to(F32) * p["D"][:, None]
     y = y.reshape(*y.shape[:-2], di).to(dtype)
-    y = y * _silu(z)
+    y = y * silu(z)
     y = rms_norm(y, p["gate_norm"])
     return matmul(y, p["wo"])
 

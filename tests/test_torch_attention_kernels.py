@@ -41,6 +41,8 @@ from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 
 F32_TOL = dict(rtol=1e-5, atol=2e-5)
 BF16_REL = 2.0 ** -8
+#: streaming multiprocessors of an H100 SXM, the card the splits are sized for
+H100_SMS = 132
 
 
 def _np(g, *shape):
@@ -197,6 +199,105 @@ def test_all_masked_row_convention():
     assert not np.asarray(pallas).any()
 
 
+def _split_schedule(q, k, v, lengths, pos, q_pos, window, block_t):
+    """Plain emulation of ``csrc/decode_attention.cu``'s arithmetic
+    order, in f32 on the CPU: the cache cut into splits of ``block_t``
+    slots (the last one shorter when ``block_t`` does not divide T); per
+    split ``m_i = max s`` and ``l_i = sum exp(s - m_i)`` (launch A); the
+    row's ``m = max m_i`` and ``l = sum_i l_i exp(m_i - m)`` in split
+    order, ``p = exp(s - m) / l`` rounded to bf16, masked slots skipped
+    when the row has a valid key, each split's f32 partial P·V (launch
+    B); the partials summed in split order and rounded once (launch C)."""
+    B, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    s = torch.einsum("bkgd,btkd->bkgt", q.float().reshape(B, KV, G, hd),
+                     k.float()) * (hd ** -0.5)
+    valid = (pos >= 0) & (pos < lengths[:, None])
+    if window is not None:
+        valid &= pos > q_pos[:, None] - window
+    valid = valid[:, None, None, :]
+    s = torch.where(valid, s, torch.full((), -1e30))
+    cuts = [slice(t0, min(T, t0 + block_t)) for t0 in range(0, T, block_t)]
+    ms = [s[..., c].amax(-1) for c in cuts]
+    ls = [torch.exp(s[..., c] - m[..., None]).sum(-1)
+          for c, m in zip(cuts, ms)]
+    m = torch.stack(ms).amax(0)
+    l = torch.zeros_like(m)
+    for mi, li in zip(ms, ls):
+        l = l + li * torch.exp(mi - m)
+    any_valid = (m > -1e30)[..., None]
+    out = torch.zeros(B, KV, G, hd)
+    for c in cuts:
+        p = (torch.exp(s[..., c] - m[..., None]) / l[..., None]).to(
+            torch.bfloat16).float()
+        p = torch.where(valid[..., c] | ~any_valid, p, torch.zeros(()))
+        out = out + torch.einsum("bkgt,btkd->bkgd", p, v[:, c].float())
+    return out.to(torch.bfloat16).reshape(B, H, hd)
+
+
+@pytest.mark.parametrize("q_dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("B,T,H,KV,hd,window,ring,block_t", [
+    (4, 192, 32, 32, 96, None, False, None),   # phi3 served, 3 splits
+    (4, 512, 32, 8, 128, 384, True, None),     # ring + window, 8 splits
+    (4, 1024, 16, 8, 256, 1024, True, None),   # gemma3-12b decode
+    (1, 192, 32, 32, 96, None, False, None),   # phi3 at batch 1, 6 splits
+    (4, 192, 4, 4, 96, None, False, 80),       # ragged last split (32)
+    (3, 200, 8, 2, 64, None, False, 24),       # splits below 32 slots
+    (2, 100, 4, 1, 40, 30, True, 100),         # one split, MQA
+])
+def test_split_schedule_matches_oracle(q_dtype, B, T, H, KV, hd, window,
+                                       ring, block_t):
+    """The split schedule of the CUDA decode kernel against the JAX
+    oracle within 2^-7 max|v|, the card tests' bound, at chip_smoke's
+    decode shapes (the wrapper's default split) and at chosen splits,
+    with a row whose every slot is masked (mean of v)."""
+    g = np.random.default_rng((B, T, hd, KV))
+    q = _np(g, B, H, hd)
+    k, v = _np(g, B, T, KV, hd), _np(g, B, T, KV, hd)
+    lengths = np.array([T, T - 41, T // 2 + 3, 5][:B], np.int32)
+    pos = np.tile(np.arange(T, dtype=np.int32), (B, 1))
+    pos = np.where(pos < lengths[:, None], pos, -1).astype(np.int32)
+    if ring:                                   # the newest r slots wrapped
+        r = np.array([37, 0, 100, 3][:B])[:, None]
+        j = np.arange(T)[None, :]
+        pos = np.where(j < r, j + T, j).astype(np.int32)
+        lengths = (T + r[:, 0]).astype(np.int32)
+    lengths[-1] = 0 if B > 1 else lengths[-1]  # no valid key: mean of v
+    q_pos = np.maximum(lengths - 1, 0).astype(np.int32)
+    if block_t is None:
+        block_t = tda.default_block_t(B, T, KV, H100_SMS)
+    jq, tq = _pair(q, q_dtype)
+    (jk, tk), (jv, tv) = _pair(k, "bf16"), _pair(v, "bf16")
+    want = jref.decode_attention(jq, jk, jv, lengths=jnp.asarray(lengths),
+                                 key_positions=jnp.asarray(pos),
+                                 q_pos=jnp.asarray(q_pos), window=window)
+    got = _split_schedule(tq, tk, tv, torch.from_numpy(lengths),
+                          torch.from_numpy(pos), torch.from_numpy(q_pos),
+                          window, block_t)
+    want = np.asarray(want.astype(jnp.float32))
+    vmax = np.abs(np.asarray(jv.astype(jnp.float32))).max()
+    assert np.abs(got.float().numpy() - want).max() <= 2.0 ** -7 * vmax
+    if B > 1:
+        mean = tv[-1, :, :, :].float().mean(0).repeat_interleave(H // KV, 0)
+        np.testing.assert_allclose(got[-1].float().numpy(), mean.numpy(),
+                                   atol=2.0 ** -7 * vmax)
+
+
+def test_default_block_t_fills_the_card():
+    """The default split: at least two blocks per SM (here the H100 SXM's
+    132) unless that would cut a split below 32 slots."""
+    for B, T, KV in ((4, 192, 32), (4, 512, 8), (4, 1024, 8), (1, 192, 32),
+                     (1, 4096, 8), (8, 64, 32), (1, 20, 1), (2, 999, 4)):
+        bt = tda.default_block_t(B, T, KV, H100_SMS)
+        n_split = -(-T // bt)
+        assert bt >= tda.MIN_BLOCK_T
+        assert KV * B * n_split >= 2 * H100_SMS or bt == tda.MIN_BLOCK_T
+    assert [tda.default_block_t(*c, H100_SMS)
+            for c in ((4, 192, 32), (4, 512, 8), (4, 1024, 8),
+                      (1, 192, 32))] == [64, 56, 113, 32]
+
+
 def test_wrappers_refuse_cpu_tensors_and_bad_shapes():
     """The CUDA wrappers never fall back: a CPU tensor is an error."""
     q = torch.zeros(1, 4, 2, 16, dtype=torch.bfloat16)
@@ -211,5 +312,8 @@ def test_wrappers_refuse_cpu_tensors_and_bad_shapes():
     with pytest.raises(ValueError, match="unsupported"):
         tda.decode_attention(torch.zeros(1, 34, 16), q, q,
                              lengths=torch.ones(1))
+    with pytest.raises(ValueError, match="block_t"):
+        tda.decode_attention(q[:, 0], q, q, lengths=torch.ones(1),
+                             block_t=0)
     assert tfa.flash_attention.launches == 0
     assert tda.decode_attention.launches == 0

@@ -190,12 +190,17 @@ def test_flash_attention_kernel_close_to_plain(cuda, B, S, T, H, KV, hd,
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,T,H,KV,hd,window", [
     (4, 192, 4, 4, 96, None),              # the serving shape, narrowed
-    (3, 300, 8, 2, 128, None),             # GQA, ragged last tile
+    (3, 300, 8, 2, 128, None),             # GQA
     (2, 64, 16, 1, 64, 24),                # MQA (G = 16), ring + window
+    (2, 90, 4, 2, 100, None),              # hd % 8 != 0: element loads
+    (4, 1024, 16, 8, 256, 1024),           # gemma3-12b, ring + window
 ])
+@pytest.mark.parametrize("block_t", [None, "T", 40, 16])
 @pytest.mark.parametrize("q_dtype", ["bf16", "f32"])
 def test_decode_attention_kernel_close_to_plain(cuda, B, T, H, KV, hd,
-                                                window, q_dtype):
+                                                window, block_t, q_dtype):
+    """Splits: the default, one split of the whole cache, a ragged last
+    split, splits shorter than 32 slots."""
     g = np.random.default_rng((B, T, hd))
     q = _bf16(g, B, H, hd, device=cuda, dtype=torch.float32
               if q_dtype == "f32" else torch.bfloat16)
@@ -215,7 +220,7 @@ def test_decode_attention_kernel_close_to_plain(cuda, B, T, H, KV, hd,
     before = decode_attention.decode_attention.launches
     out = decode_attention.decode_attention(
         q, k, v, lengths=lengths, key_positions=kp, q_pos=qpos,
-        window=window)
+        window=window, block_t=T if block_t == "T" else block_t)
     plain = ref.decode_attention(q, k, v, lengths=lengths, key_positions=kp,
                                  q_pos=qpos, window=window)
     torch.cuda.synchronize()
@@ -227,6 +232,24 @@ def test_decode_attention_kernel_close_to_plain(cuda, B, T, H, KV, hd,
         mean = v[0].float().mean(0).repeat_interleave(H // KV, dim=0)
         torch.testing.assert_close(out[0].float(), mean, rtol=0,
                                    atol=ATTN_TOL)
+
+
+@pytest.mark.gpu
+def test_decode_attention_kernel_unaligned_cache(cuda):
+    """A cache whose rows are not 16-byte aligned takes the element-load
+    instantiation; the same result as the plain version."""
+    g = np.random.default_rng(3)
+    B, T, H, KV, hd = 2, 96, 8, 2, 64
+    q = _bf16(g, B, H, hd, device=cuda)
+    n = B * T * KV * hd
+    k = _bf16(g, n + 1, device=cuda)[1:].view(B, T, KV, hd)
+    v = _bf16(g, n + 1, device=cuda)[1:].view(B, T, KV, hd)
+    assert k.data_ptr() % 16 and v.data_ptr() % 16
+    lengths = torch.tensor([T, 50], dtype=torch.int32, device=cuda)
+    out = decode_attention.decode_attention(q, k, v, lengths=lengths)
+    plain = ref.decode_attention(q, k, v, lengths=lengths)
+    torch.cuda.synchronize()
+    _within(out, plain, v)
 
 
 def _ssd_inputs(g, device, b, s, h, p, n, dtype, h0):
