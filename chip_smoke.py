@@ -35,7 +35,8 @@ Mamba-2 model (mamba2-1.3b):
    included), and prints the serving metrics;
 7. times each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, with CUDA events (median of
-   repeated runs);
+   repeated runs), and fails where a kernel's time reads under its
+   bound (every SSD case, and every kernel of the kernels line);
 8. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
    ...}`` line.
 
@@ -501,27 +502,42 @@ def check_decode(device, label, B, T, H, KV, hd, window, ring) -> dict:
 
 #: (label, b, s, h, p, n, chunk, dtype): mamba2-1.3b's prefill at the
 #: serving run's 512-token prompt (two chunks), a 384-token prompt that
-#: ops.ssd_scan pads into a second chunk, batch 4 at 2048 tokens, and
-#: the served shape in f32
+#: ops.ssd_scan pads into a second chunk, batch 4 at 2048 tokens, the
+#: served shape in f32, and jamba-1.5-large's Mamba layer (128 heads of
+#: 128, d_state 128) at the same prompt
 SSD_CASES = [
     ("mamba2 s=512 (served)", 1, 512, 64, 64, 128, 256, "bf16"),
     ("mamba2 s=384 (padded)", 1, 384, 64, 64, 128, 256, "bf16"),
     ("mamba2 b=4 s=2048", 4, 2048, 64, 64, 128, 256, "bf16"),
     ("mamba2 s=512 f32", 1, 512, 64, 64, 128, 256, "f32"),
+    ("jamba-1.5-large s=512 p=128", 1, 512, 128, 128, 128, 256, "bf16"),
 ]
 
 
-def ssd_op_time(b: int, s: int, h: int, p: int, n: int, L: int,
-                dtype: str) -> float:
-    """Seconds of the chunked scan's operations at the card's peak rates,
-    counting the causal pairs t >= s only: per (batch row, chunk) C.B^T
-    once (L (L + 1) N: B and C are one group, shared by the heads), at
-    the bf16 tensor-core rate where B and C are bf16 (their products are
-    exact in f32); per head M.x (L (L + 1) P) and C.h with the state
-    update (4 L P N), at the f32 rate (M and the state are f32)."""
+def ssd_flops(b: int, s: int, h: int, p: int, n: int, L: int) -> tuple:
+    """(C.B^T, the rest) flops of the chunked scan over the causal pairs
+    t >= s only: per (batch row, chunk) C.B^T once (L (L + 1) N: B and C
+    are one group, shared by the heads); per head M.x (L (L + 1) P) and
+    C.h with the state update (4 L P N)."""
     chunks = -(-s // L)
-    cb = b * chunks * L * (L + 1) * n
-    rest = b * chunks * h * (L * (L + 1) * p + 4 * L * p * n)
+    return (b * chunks * L * (L + 1) * n,
+            b * chunks * h * (L * (L + 1) * p + 4 * L * p * n))
+
+
+def ssd_op_time(b, s, h, p, n, L, dtype: str) -> float:
+    """Seconds of those operations on the tensor cores (989 TFLOP/s),
+    each product with an f32 operand counted twice, as its hi and lo
+    bf16 parts: M.x, C.h and the state update always (M and the state
+    are f32), C.B^T once for bf16 inputs (their products are exact in
+    f32) and twice for f32 ones."""
+    cb, rest = ssd_flops(b, s, h, p, n, L)
+    return (cb * (1 if dtype == "bf16" else 2) + 2 * rest) / BF16_OPS_PER_S
+
+
+def ssd_f32_core_time(b, s, h, p, n, L, dtype: str) -> float:
+    """The older figure: C.B^T at the bf16 tensor-core rate for bf16
+    inputs, everything else on the f32 CUDA cores (67 TFLOP/s)."""
+    cb, rest = ssd_flops(b, s, h, p, n, L)
     cb_rate = BF16_OPS_PER_S if dtype == "bf16" else F32_OPS_PER_S
     return cb / cb_rate + rest / F32_OPS_PER_S
 
@@ -585,19 +601,25 @@ def check_ssd(device, label, b, s, h, p, n, chunk, dtype) -> dict:
     moved = nbytes((xp, dtp, A, Bp, Cp, y, hN))
     t_bytes = moved / HBM_BYTES_PER_S
     t_ops = ssd_op_time(b, s, h, p, n, chunk, dtype)
-    return {"shape": {"b": b, "s": s, "h": h, "p": p, "n": n,
-                      "chunk": chunk, "dtype": dtype, "padded_to": s + pad},
-            "max_abs_err": max(err.values()), "max_abs_err_y": err["y"],
-            "max_abs_err_hN": err["hN"], "rtol": SSD_TOL,
-            "bound_used_y": used["y"], "bound_used_hN": used["hN"],
-            "bf16_state_bound_used_y": control["y"],
-            "bf16_state_bound_used_hN": control["hN"],
-            "ms": cuda_ms(lambda: ops.ssd_scan(x, dt, A, B, C, chunk=chunk)),
-            "plain_ms": cuda_ms(lambda: ref.ssd_chunked(xp, dtp, A, Bp, Cp,
-                                                        chunk=chunk)),
-            "library_ms": None,
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    t_core = ssd_f32_core_time(b, s, h, p, n, chunk, dtype)
+    rec = {"shape": {"b": b, "s": s, "h": h, "p": p, "n": n,
+                     "chunk": chunk, "dtype": dtype, "padded_to": s + pad},
+           "max_abs_err": max(err.values()), "max_abs_err_y": err["y"],
+           "max_abs_err_hN": err["hN"], "rtol": SSD_TOL,
+           "bound_used_y": used["y"], "bound_used_hN": used["hN"],
+           "bf16_state_bound_used_y": control["y"],
+           "bf16_state_bound_used_hN": control["hN"],
+           "ms": cuda_ms(lambda: ops.ssd_scan(x, dt, A, B, C, chunk=chunk)),
+           "plain_ms": cuda_ms(lambda: ref.ssd_chunked(xp, dtp, A, Bp, Cp,
+                                                       chunk=chunk)),
+           "library_ms": None,
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "f32_core_bound_ms": max(t_bytes, t_core) * 1e3}
+    if rec["ms"] < rec["bound_ms"]:
+        fail(f"ssd_scan {label}: {rec['ms']:.5f} ms reads under its bound "
+             f"{rec['bound_ms']:.5f} ms")
+    return rec
 
 
 def greedy(cfg, params, prompt, max_len: int, steps: int, forced=None):
@@ -937,6 +959,10 @@ def main() -> int:
             "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c.get("library_ms")})
+    for e in entries:
+        if e["ms"] < e["bound_ms"]:
+            fail(f"kernel {e['name']}: {e['ms']:.5f} ms reads under its "
+                 f"bound {e['bound_ms']:.5f} ms")
     record["kernels"] = entries
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

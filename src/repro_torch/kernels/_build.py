@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, at first use, and loaded with
 ``ctypes``.  The library's file name carries a hash of its source and
-flags, so an edited source is rebuilt and an unchanged one is reused.
+flags (and of the shared headers ``csrc/*.cuh``), so an edited source
+is rebuilt and an unchanged one is reused.
 All sources missing a library are compiled at once, one ``nvcc`` each.
 A failed build raises: there is no fallback.
 """
@@ -46,7 +47,9 @@ def flags(name: str) -> tuple:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # every shared header counts, whichever sources include it
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu",
+                                            *sorted(CSRC.glob("*.cuh"))])
     key = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{key[:16]}.so"
 

@@ -75,6 +75,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -485,24 +487,6 @@ decode_combine_kernel(const float* part, __nv_bfloat16* __restrict__ out,
   out[i] = __float2bfloat16(s);
 }
 
-// launch attributes: programmatic dependent launch (the kernel's blocks
-// may start while the previous one runs, and wait before reading its
-// output)
-struct PdlConfig {
-  cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg = {};
-  PdlConfig(dim3 grid, size_t smem, cudaStream_t stream) {
-    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-    attr[0].val.programmaticStreamSerializationAllowed = 1;
-    cfg.gridDim = grid;
-    cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-  }
-};
-
 template <typename TQ, int MAXG, int W>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
            const void* kpos, const void* qpos, void* out, void* logits,
@@ -528,7 +512,7 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  PdlConfig b_cfg(grid, smem, stream);
+  PdlConfig b_cfg(grid, kThreads, smem, stream);
   err = cudaLaunchKernelEx(
       &b_cfg.cfg, decode_pv_kernel<MAXG, W>,
       static_cast<const __nv_bfloat16*>(v), len, kp, qp,
@@ -537,7 +521,8 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
       hd, window, block_t, n_split);
   if (err != cudaSuccess || n_split == 1) return (int)err;
   const int n_out = B * H * hd;
-  PdlConfig c_cfg(dim3((n_out + kThreads - 1) / kThreads), 0, stream);
+  PdlConfig c_cfg(dim3((n_out + kThreads - 1) / kThreads), kThreads, 0,
+                  stream);
   err = cudaLaunchKernelEx(&c_cfg.cfg, decode_combine_kernel,
                            static_cast<const float*>(part),
                            static_cast<__nv_bfloat16*>(out), n_out, hd,

@@ -372,3 +372,70 @@ def ssd_chunked(x, dt, A, B, C, *, chunk: int, h0=None):
         hprev = hprev * torch.exp(cum[:, -1, :])[:, :, None, None] + upd
         ys.append(y)
     return torch.cat(ys, dim=1), hprev
+
+
+def _bf16_parts(v: torch.Tensor, parts: int) -> list:
+    """``v`` rounded to f32, as ``parts`` bf16 terms in f64, each the bf16
+    rounding of what the ones before it left (hi, lo, ...); in f32 the
+    remainder ``v - hi`` is exact."""
+    out, r = [], v.float()
+    for _ in range(parts):
+        p = r.bfloat16().float()
+        out.append(p.double())
+        r = r - p
+    return out
+
+
+def _parts_product(eq: str, a_parts: list, b_parts: list) -> torch.Tensor:
+    """``einsum(eq)`` of two operands given as bf16 parts, in f64: the
+    products of parts i and j for i + j < the larger part count."""
+    k = max(len(a_parts), len(b_parts))
+    return sum(torch.einsum(eq, a, b) for i, a in enumerate(a_parts)
+               for j, b in enumerate(b_parts) if i + j < k)
+
+
+def ssd_chunked_parts(x, dt, A, B, C, *, chunk: int, parts: int, h0=None):
+    """The arithmetic of the ``ssd_scan`` CUDA kernel, emulated on the
+    CPU to choose and check its numerics (it is not a plain version: the
+    kernel is held against ``ssd_chunked``).  As the kernel schedules it:
+    each chunk's own state from zero, passed on in chunk order, then the
+    chunk's outputs.  Every tensor-core product is exact over bf16 parts
+    of its operands (f64 here, the kernel's f32 accumulators rounded to
+    f32 where it holds them): bf16 inputs are one exact part, f32 inputs
+    three; the f32 operands ``M``, ``w x`` and the entering state are
+    ``parts`` parts (the kernel: 2 beside bf16 inputs, 3 beside f32; 1 is
+    a single bf16 rounding).  cum, the exps, ``M`` and the state passing
+    are f32, as in the kernel.  Same shapes as ``ssd_chunked``."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
+    L = chunk
+    k_in = 1 if x.dtype == torch.bfloat16 else 3
+    A = A.float()
+    causal = torch.tril(torch.ones((L, L), dtype=torch.bool))
+    mask = torch.full((), SSD_MASK)
+    hcur = torch.zeros((b, h, p, n)) if h0 is None else h0.float()
+    ys = []
+    for c0 in range(0, s, L):
+        xc = x[:, c0:c0 + L]
+        dtc = dt[:, c0:c0 + L].float()
+        xp, Bp, Cp = (_bf16_parts(v, k_in)
+                      for v in (xc, B[:, c0:c0 + L, 0], C[:, c0:c0 + L, 0]))
+        cum = torch.cumsum(A * dtc, dim=1)                    # (b, L, h)
+        seg = cum[:, :, None, :] - cum[:, None, :, :]
+        decay = torch.exp(torch.where(causal[None, :, :, None], seg, mask))
+        cb = _parts_product("btn,bsn->bts", Cp, Bp).float()
+        M = cb[..., None] * decay * dtc[:, None, :, :]        # f32
+        inter = _parts_product("btn,bhpn->bthp", Cp,
+                               _bf16_parts(hcur, parts)).float()
+        inter = inter * torch.exp(cum)[..., None]
+        y = inter.double() + _parts_product("btsh,bshp->bthp",
+                                            _bf16_parts(M, parts), xp)
+        w = torch.exp(cum[:, -1:, :] - cum) * dtc             # (b, L, h)
+        xw = xc.float() * w[..., None]
+        upd = _parts_product("blhp,bln->bhpn", _bf16_parts(xw, parts),
+                             Bp).float()
+        hcur = hcur * torch.exp(cum[:, -1, :])[:, :, None, None] + upd
+        ys.append(y.float())
+    return torch.cat(ys, dim=1), hcur

@@ -8,9 +8,13 @@ h)``, ``A (h,)`` and the single B/C group ``(b, s, 1, n)``, carrying the
 multiple of ``chunk``.  It returns ``y`` and the final state in f32.
 Its plain PyTorch version is ``ref.ssd_chunked``; ``kernels.ops
 .ssd_scan`` pads any ``s`` to a multiple of the chunk.  Both compute in
-f32 from inputs widened first; they differ by the order of f32 sums
-(and the kernel's FMA contraction).  ``ssd_scan.launches`` counts the
-launches.
+f32 from inputs widened first; the kernel's tensor-core products take
+every f32 operand as bf16 parts (hi and lo; three parts beside f32
+inputs), so the two differ by the order of f32 sums and those parts'
+last bits.  One call makes three launches (chunk states with the
+chunk's C.B^T tiles, state passing, chunk outputs), four for f32 inputs
+(their split into bf16 parts first); ``ssd_scan.launches`` counts the
+calls, one each.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.vector_step import _check
 
 #: the kernel's limits: head_dim and d_state columns, chunk rows
-MAX_HEAD_DIM = 64
+MAX_HEAD_DIM = 128
 MAX_STATE = 128
 MAX_CHUNK = 1024
 
@@ -57,18 +61,33 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     _check(A, "A", _F32, (h,))
     if h0 is not None:
         _check(h0, "h0", _F32, (b, h, p, n))
-    y = torch.empty((b, s, h, p), dtype=_F32, device=x.device)
-    hN = torch.empty((b, h, p, n), dtype=_F32, device=x.device)
+    f32 = et == _F32
+    nc, parts = s // chunk, 3 if f32 else 2
+
+    def empty(*shape, dtype=_F32):
+        return torch.empty(shape, dtype=dtype, device=x.device)
+    y, hN = empty(b, s, h, p), empty(b, h, p, n)
+    # scratch: each chunk's own state, its decay exp(cum_L), its C.B^T
+    # tiles (t >= s), the state entering it as bf16 parts and, for f32
+    # inputs, their bf16 parts
+    upd, decay = empty(b, nc, h, p, n), empty(b, nc, h)
+    tiles = -(-chunk // 64)
+    cb = empty(b, nc, tiles * (tiles + 1) // 2, 64, 64)
+    hin = empty(b, nc, h, parts, p, n, dtype=torch.bfloat16)
+    planes = (empty(3 * (x.numel() + 2 * B.numel()), dtype=torch.bfloat16)
+              if f32 else None)
     fn = _build.load("ssd_scan").ssd_scan
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
                 C.data_ptr(), None if h0 is None else h0.data_ptr(),
-                y.data_ptr(), hN.data_ptr(), b, s, h, p, n, int(chunk),
-                int(et == _F32), stream)
+                y.data_ptr(), hN.data_ptr(), upd.data_ptr(),
+                decay.data_ptr(), cb.data_ptr(), hin.data_ptr(),
+                None if planes is None else planes.data_ptr(), b, s, h, p,
+                n, int(chunk), int(f32), stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {rc}")
     ssd_scan.launches += 1

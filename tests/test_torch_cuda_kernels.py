@@ -28,10 +28,14 @@ step can differ: within ``ATTN_TOL`` as well.
 
 The SSD scan widens its inputs to f32 first, as its plain version does;
 the two differ by the order of f32 sums and FMA contraction, whatever
-the input dtype.  So for bf16 inputs as for f32 the kernel and the plain
-version are both held against the same scan run in f64 on the same
-(widened) values, within the f32 bound of ``tests/test_kernels.py``,
-rtol = atol = 2e-4, widened by ``L * 2^-24 * max|y|``: the f32 rounding
+the input dtype, and by the kernel's tensor-core products, which take
+every f32 operand as bf16 parts (hi and lo; three parts beside f32
+inputs): about 2^-16 relative per operand, a few percent of the bound
+below at mamba2's widths (scripts/ssd_numerics.py emulates it).  So for
+bf16 inputs as for f32 the kernel and the plain version are both held
+against the same scan run in f64 on the same (widened) values, within
+the f32 bound of ``tests/test_kernels.py``, rtol = atol = 2e-4, widened
+by ``L * 2^-24 * max|y|``: the f32 rounding
 of the chunk's cumulative sum of L decays, which every
 ``exp(cum_t - cum_s)`` inherits.  The reference's own test (chunks <= 64,
 |y| <= ~50) never reaches that term; at mamba2's chunk of 256 with
@@ -279,6 +283,13 @@ def _ssd_f32_close(got, truth, chunk: int) -> None:
     (1, 512, 64, 64, 128, 256, False),     # mamba2-1.3b's prefill
     (2, 256, 3, 64, 128, 128, True),       # the served widths, h0
     (1, 96, 2, 24, 40, 96, True),          # ragged tiles: P, N, L
+    (1, 512, 8, 128, 128, 256, False),     # jamba-1.5-large's Mamba head
+    (1, 512, 8, 128, 128, 256, True),
+    (1, 160, 3, 96, 72, 80, False),        # ragged, past the old P <= 64
+    (1, 160, 3, 96, 72, 80, True),
+    (4, 512, 64, 64, 128, 256, False),     # batch 4 at the served widths
+    (4, 512, 64, 64, 128, 256, True),
+    (1, 96, 2, 20, 30, 48, True),          # P, N not multiples of 8
 ])
 @pytest.mark.parametrize("dtype", ["bf16", "f32"])
 def test_ssd_scan_kernel_close_to_plain(cuda, b, s, h, p, n, chunk, h0,
@@ -299,6 +310,18 @@ def test_ssd_scan_kernel_close_to_plain(cuda, b, s, h, p, n, chunk, h0,
         _ssd_f32_close(got, ty, chunk)
     for got in (hN, ph):
         _ssd_f32_close(got, th, chunk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p,n", [(129, 128), (128, 129)])
+def test_ssd_scan_refuses_past_its_limits(cuda, p, n):
+    """P and N up to 128: past that the wrapper raises, with no launch."""
+    g = np.random.default_rng(p + n)
+    x, dt, A, B, C, _ = _ssd_inputs(g, cuda, 1, 64, 2, p, n, "bf16", False)
+    before = ssd_scan.ssd_scan.launches
+    with pytest.raises(ValueError, match="p <= 128, n <= 128"):
+        ssd_scan.ssd_scan(x, dt, A, B, C, chunk=64)
+    assert ssd_scan.ssd_scan.launches == before
 
 
 @pytest.mark.gpu

@@ -35,9 +35,11 @@ from repro_torch.kernels import ssd_scan as tssd  # noqa: E402
 
 TOL = {"f32": dict(rtol=2e-4, atol=2e-4), "bf16": dict(rtol=3e-2, atol=3e-2)}
 
-#: the shapes of tests/test_kernels.py::test_ssd_scan (b, s, h, p, n, chunk)
+#: the shapes of tests/test_kernels.py::test_ssd_scan (b, s, h, p, n, chunk),
+#: then jamba-1.5-large's Mamba head (p = n = 128, the CUDA kernel's
+#: widest) at a small s and h
 SHAPES = [(2, 128, 4, 16, 16, 32), (1, 256, 2, 64, 128, 64),
-          (2, 64, 8, 32, 64, 32)]
+          (2, 64, 8, 32, 64, 32), (1, 64, 2, 128, 128, 32)]
 
 
 def _inputs(b, s, h, p, n, dtype: str, seed=0):
@@ -149,6 +151,69 @@ def test_cpu_tensors_take_the_plain_version_and_never_the_kernel():
         tssd.ssd_scan(x, dt, A, B, C, chunk=32)
     with pytest.raises(ValueError, match="chunk"):
         tssd.ssd_scan(x, dt, A, B, C, chunk=48)
-    _, wide = _inputs(1, 32, 1, 128, 16, "f32", seed=4)
-    with pytest.raises(ValueError, match="p <= 64"):
+    _, wide = _inputs(1, 32, 1, 129, 16, "f32", seed=4)
+    with pytest.raises(ValueError, match="p <= 128"):
         tssd.ssd_scan(*wide, chunk=32)
+    _, wide = _inputs(1, 32, 1, 16, 129, "f32", seed=4)
+    with pytest.raises(ValueError, match="n <= 128"):
+        tssd.ssd_scan(*wide, chunk=32)
+
+
+def _served_head(seed: int, dtype) -> tuple:
+    """One head of mamba2-1.3b's served prefill (s 512, p 64, n 128, two
+    chunks of 256) in chip_smoke.py's ranges: x, B, C unit normal in
+    ``dtype``, dt = softplus(N - 4.6 + 2 N), A = -exp(1.386 + 0.5 N)."""
+    g = np.random.default_rng((seed, 17))
+
+    def f(*shape):
+        return torch.from_numpy(g.standard_normal(shape).astype(np.float32))
+    x = f(1, 512, 1, 64).to(dtype)
+    dt = torch.nn.functional.softplus(f(1, 512, 1) - 4.6 + 2.0 * f(1, 512, 1))
+    A = -torch.exp(1.386 + 0.5 * f(1))
+    return x, dt, A, f(1, 512, 1, 128).to(dtype), f(1, 512, 1, 128).to(dtype)
+
+
+def _card_bound_used(got, plain, chunk: int) -> float:
+    """The largest share of chip_smoke.py's bound on |kernel - plain|,
+    2e-4 (1 + |plain|) + L 2^-24 max|plain|, that an element uses."""
+    atol = 2e-4 + chunk * 2.0 ** -24 * plain.abs().max().item()
+    return ((got - plain).abs() / (atol + 2e-4 * plain.abs())).max().item()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_ssd_split_products_keep_the_card_bound(seed):
+    """The numerics of the CUDA kernel, emulated in f64
+    (``ref.ssd_chunked_parts``): with its f32 operands (M, w x, the
+    entering state) as bf16 hi + lo parts against exact bf16 inputs, y
+    and the final state stay within a tenth of chip_smoke's bound around
+    the plain version; rounded to bf16 once, they miss it."""
+    x, dt, A, B, C = _served_head(seed, torch.bfloat16)
+    py, ph = ref.ssd_chunked(x, dt, A, B, C, chunk=256)
+    y2, h2 = ref.ssd_chunked_parts(x, dt, A, B, C, chunk=256, parts=2)
+    assert _card_bound_used(y2, py, 256) <= 0.1
+    assert _card_bound_used(h2, ph, 256) <= 0.1
+    y1, h1 = ref.ssd_chunked_parts(x, dt, A, B, C, chunk=256, parts=1)
+    assert _card_bound_used(y1, py, 256) > 1.0
+    assert _card_bound_used(h1, ph, 256) > 1.0
+
+
+def test_ssd_split_products_of_f32_inputs_keep_the_card_bound():
+    """f32 inputs: every operand in three bf16 parts (the kernel's split
+    beside f32 inputs) stays within a tenth of the same bound."""
+    x, dt, A, B, C = _served_head(2, torch.float32)
+    py, ph = ref.ssd_chunked(x, dt, A, B, C, chunk=256)
+    y3, h3 = ref.ssd_chunked_parts(x, dt, A, B, C, chunk=256, parts=3)
+    assert _card_bound_used(y3, py, 256) <= 0.1
+    assert _card_bound_used(h3, ph, 256) <= 0.1
+
+
+def test_ssd_chunked_parts_matches_the_plain_version_at_small_shapes():
+    """The emulation itself, in three parts on f32 inputs, against
+    ``ssd_chunked`` with an initial state and a ragged chunk count."""
+    _, (x, dt, A, B, C) = _inputs(2, 96, 3, 24, 40, "f32", seed=5)
+    h0 = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, 3, 24, 40)).astype(np.float32))
+    py, ph = ref.ssd_chunked(x, dt, A, B, C, chunk=32, h0=h0)
+    ey, eh = ref.ssd_chunked_parts(x, dt, A, B, C, chunk=32, parts=3, h0=h0)
+    _close(ey, py, "f32")
+    _close(eh, ph, "f32")
