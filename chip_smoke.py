@@ -10,8 +10,10 @@ Mamba-2 model (mamba2-1.3b):
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together);
 3. holds every kernel against its plain PyTorch version on the card, at
-   the shapes the main paths give it: the vector kernels bit-equal, the
-   attention and SSD kernels within their stated tolerances;
+   the shapes the main paths give it: the vector kernels bit-equal (the
+   scans at each grid's launch, ``SCAN_CASES``, and as a one-slot
+   launch), the attention and SSD kernels within their stated
+   tolerances;
 4. runs four grids end to end through ``repro_torch.vector.run_cells``
    (the paper's Fig. 1 grid, a 16-server jsq grid, server-failure and
    batched-serving), checks that every vector kernel was launched and
@@ -266,9 +268,21 @@ def scan_bound(consts, carry, xs, new_carry, ys, per_lane_ops) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_scan(name, batched, n_real, inputs) -> dict:
+#: the scan launches of the main path: (check key, grid of build_grids);
+#: each is the grid's first chunk (server-failure's: T 9216, 13 cells of
+#: 4 lanes, the one with fail slots)
+SCAN_CASES = [("scalar_scan/fig1", "fig1"),
+              ("scalar_scan/steady16", "steady"),
+              ("scalar_scan/server-failure", "server-failure"),
+              ("batched_scan/batched8", "batched-serving")]
+#: repeats of a scan's plain version when it is timed (seconds a call)
+PLAIN_SCAN_RUNS = 3
+
+
+def check_scan(name, batched, n_real, inputs, time_plain=True) -> dict:
     """Kernel vs plain version of one scan on the card; returns the
-    record (errors, times, bound)."""
+    record (errors, times, bound).  ``time_plain=False`` leaves the plain
+    version's time out (``plain_ms`` None)."""
     from repro_torch.kernels import ref, vector_step
     consts, carry, xs = inputs
     kern = vector_step.batched_scan if batched else vector_step.scalar_scan
@@ -297,10 +311,11 @@ def check_scan(name, batched, n_real, inputs) -> dict:
                 else (lambda S: 3 * S + 30))
     bound_ms, bound_by = scan_bound(consts, carry, xs, kc, ky, per_lane)
     T, C, S = xs[1].shape
+    ms = cuda_ms(lambda: kern(consts, carry, xs))
     return {"shape": {"T": T, "C": C, "S": S, "real_slots": n_real},
-            "max_abs_err": worst,
-            "ms": cuda_ms(lambda: kern(consts, carry, xs)),
-            "plain_ms": cuda_ms(lambda: plain(consts, carry, xs)),
+            "max_abs_err": worst, "ms": ms, "us_per_slot": ms * 1e3 / T,
+            "plain_ms": (cuda_ms(lambda: plain(consts, carry, xs),
+                                 PLAIN_SCAN_RUNS) if time_plain else None),
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
@@ -736,6 +751,25 @@ def run_serving(args=SERVE_ARGS) -> dict:
     return report
 
 
+def run_grids(grids) -> tuple:
+    """Runs every grid end to end on the card through ``run_cells``;
+    returns ({name: rows}, {name: wall time and cells/s}) and prints one
+    ``e2e`` line a grid (host clock until the rows are on the host)."""
+    from repro_torch.vector import VectorConfig, run_cells
+    results, e2e = {}, {}
+    torch.cuda.synchronize()
+    for name, progs, seeds in grids:
+        t0 = time.perf_counter()
+        rows = run_cells(progs, seeds, VectorConfig(device="cuda"))
+        wall = time.perf_counter() - t0
+        results[name] = rows
+        e2e[name] = {"cells": len(rows), "wall_s": wall,
+                     "cells_per_s": len(rows) / wall}
+        print(f"e2e {name}: {len(rows)} cells in {wall:.3f} s "
+              f"({len(rows) / wall:.1f} cells/s)", flush=True)
+    return results, e2e
+
+
 def rows_close(gpu, cpu) -> str:
     """'' when a card row matches its CPU row within the test
     tolerances, else what differs."""
@@ -790,9 +824,7 @@ def main() -> int:
 
     # ---- kernel checks at main-path shapes ---------------------------------
     record = {"card": card, "checks": {}}
-    for key, grid in (("scalar_scan/fig1", "fig1"),
-                      ("scalar_scan/steady16", "steady"),
-                      ("batched_scan/batched8", "batched-serving")):
+    for key, grid in SCAN_CASES:
         batched, n_real, inputs = scan_case(*by_name[grid], device)
         rec = check_scan(key, batched, n_real, inputs)
         record["checks"][key] = rec
@@ -823,18 +855,7 @@ def main() -> int:
     all_kernels = vector_kernels + attention_kernels + (ssd_scan.ssd_scan,)
     for k in all_kernels:
         k.launches = 0
-    results = {}
-    record["e2e"] = {}
-    torch.cuda.synchronize()
-    for name, progs, seeds in grids:
-        t0 = time.perf_counter()
-        rows = run_cells(progs, seeds, VectorConfig(device="cuda"))
-        wall = time.perf_counter() - t0
-        results[name] = rows
-        record["e2e"][name] = {"cells": len(rows), "wall_s": wall,
-                               "cells_per_s": len(rows) / wall}
-        print(f"e2e {name}: {len(rows)} cells in {wall:.3f} s "
-              f"({len(rows) / wall:.1f} cells/s)", flush=True)
+    results, record["e2e"] = run_grids(grids)
     launches = {k.__name__: k.launches for k in vector_kernels}
     print(f"launches on the vector path: {launches}", flush=True)
     for name, n in launches.items():
@@ -935,7 +956,7 @@ def main() -> int:
     for name, route_src, replaces, key, err_keys in (
             ("scalar_scan", src + "vector_step.cu",
              "src/repro/kernels/vector_step.py:98", "scalar_scan/fig1",
-             ("scalar_scan/fig1", "scalar_scan/steady16")),
+             tuple(k for k, _ in SCAN_CASES if k.startswith("scalar"))),
             ("batched_scan", src + "vector_step.cu",
              "src/repro/kernels/vector_step.py:132",
              "batched_scan/batched8", ("batched_scan/batched8",)),

@@ -1,4 +1,5 @@
-// Helpers shared by the port's kernels (sm_90a): 16-byte cp.async copies,
+// Helpers shared by the port's kernels (sm_90a): 16- and 4-byte cp.async
+// copies (vector_step.cu takes the 4-byte ones),
 // ldmatrix fragment loads and the bf16 mma.sync.m16n8k16 with f32
 // accumulators (flash_attention.cu, ssd_scan.cu), and the launch
 // configuration of programmatic dependent launch (decode_attention.cu,
@@ -21,6 +22,13 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool full) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(dst), "l"(src), "r"(full ? 16 : 0));
+}
+// 4 bytes global -> shared, or 4 zero bytes when !full; ordered after
+// the thread's earlier shared-memory reads of dst (a ring slot it reuses)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(full ? 4 : 0) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);

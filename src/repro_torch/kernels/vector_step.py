@@ -5,7 +5,9 @@
 ``:batched_slot_advance``.  Where the TPU ran one kernel per slot inside
 ``lax.scan``, one launch here advances every cell through every slot of
 ``xs``; a one-slot ``xs`` is the per-slot form.  The plain PyTorch
-versions are ``ref.scalar_scan`` / ``ref.batched_scan``.
+versions are ``ref.scalar_scan`` / ``ref.batched_scan``.  The launch
+geometry (cells packed into warps for up to 32 servers, one block a
+cell beyond) is ``_geometry``.
 
 Each wrapper takes CUDA tensors only, checks their device, dtype, shape
 and contiguity, allocates its outputs with ``torch.empty`` and launches
@@ -22,6 +24,11 @@ from repro_torch.kernels import _build
 
 #: server lanes one block can hold (one thread per lane)
 MAX_LANES = 1024
+#: warps one block of the packed path holds at most
+WARPS_PER_BLOCK = 4
+#: streaming multiprocessors of an H100 SXM: one-warp blocks spread over
+#: them before a block takes a second warp
+_SMS = 132
 
 _F32, _I32 = torch.float32, torch.int32
 
@@ -38,19 +45,62 @@ def _check(x: torch.Tensor, name: str, dtype, shape: tuple) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+def _geometry(C: int, S: int) -> tuple:
+    """Launch geometry of a scan over ``C`` cells of ``S`` server lanes:
+    ``(G, cells_per_warp, warps_per_block, blocks)``.
+
+    ``S <= 32``: a cell is a segment of ``G = next_pow2(S)`` lanes of a
+    warp, so a warp holds ``32 // G`` cells; blocks of one warp spread
+    over the SMs first, and a block takes up to ``WARPS_PER_BLOCK`` warps
+    once there are more warps than SMs.  ``S > 32``: one block a cell,
+    ``G`` threads (``S`` rounded up to a warp), ``cells_per_warp`` 0."""
+    if C < 1 or not 1 <= S <= MAX_LANES:
+        raise ValueError(f"unsupported scan shape C={C} S={S} "
+                         f"(need C >= 1 and 1 <= S <= {MAX_LANES})")
+    if S > 32:
+        G = -(-S // 32) * 32
+        return G, 0, G // 32, C
+    G = 1 << (S - 1).bit_length()
+    cells_per_warp = 32 // G
+    warps = -(-C // cells_per_warp)
+    per_block = min(WARPS_PER_BLOCK, max(1, warps // _SMS))
+    return G, cells_per_warp, per_block, -(-warps // per_block)
+
+
 def _launch(fn_name: str, ptrs: list, C: int, S: int, T: int, dt: float,
             device: torch.device) -> None:
     lib = _build.load("vector_step")
     fn = getattr(lib, fn_name)
+    geometry = _geometry(C, S)
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_float, *[ctypes.c_int] * 4,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     arr = (ctypes.c_void_p * len(ptrs))(*[p.data_ptr() for p in ptrs])
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(arr, C, S, T, float(dt), stream)
+        rc = fn(arr, C, S, T, float(dt), *geometry, stream)
     if rc != 0:
         raise RuntimeError(f"{fn_name} launch failed: CUDA error {rc}")
+
+
+def _fast_div(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """The scan kernels' branch-free divide of f32 CUDA tensors ``a / b``
+    (``FastDiv`` in ``csrc/vector_step.cu``) -> ``(q, bad)``: ``q`` is the
+    IEEE quotient wherever ``bad`` is 0.  For the tests."""
+    for x, n in ((a, "a"), (b, "b")):
+        _check(x, n, _F32, tuple(a.shape))
+    q = torch.empty_like(a)
+    bad = torch.empty(a.shape, dtype=_I32, device=a.device)
+    fn = _build.load("vector_step").vector_step_fast_div
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(a.device):
+        rc = fn(a.data_ptr(), b.data_ptr(), q.data_ptr(), bad.data_ptr(),
+                a.numel(), torch.cuda.current_stream(a.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"vector_step_fast_div failed: CUDA error {rc}")
+    return q, bad
 
 
 def _shape(carry0: torch.Tensor, t_idx: torch.Tensor) -> tuple:

@@ -72,7 +72,7 @@ def cuda():
 
 
 def _scan_inputs(device, S: int, batched: bool, T: int = 48, C: int = 5):
-    g = np.random.default_rng((S, int(batched)))
+    g = np.random.default_rng((S, int(batched), T, C))
 
     def f(*shape, scale=1.0):
         return torch.from_numpy((g.random(shape) * scale)
@@ -80,11 +80,14 @@ def _scan_inputs(device, S: int, batched: bool, T: int = 48, C: int = 5):
 
     act = (f(T, C, S) < 0.9).float()
     acc = act * (f(T, C, S) < 0.85).float()
-    acc[:, 1] = 0.0                              # a cell nobody accepts in
+    # a cell nobody accepts in: every lane at _BIG in the water-fill, and
+    # at 16 lanes the phantom fill of the reference (ROADMAP Queue C)
+    acc[:, 1] = 0.0
+    fail = np.where(g.random((C, S)) < 0.3, g.integers(0, T, (C, S)), -1)
+    fail[0, 0], fail[2, S - 1] = 0, T - 1       # the first and last slot
     consts = {"c": (f(C, S, scale=6.0) + 1.0).floor(),
-              "fail_slot": torch.from_numpy(np.where(
-                  g.random((C, S)) < 0.3, g.integers(0, T, (C, S)), -1)
-                  .astype(np.int32)).to(device),
+              "fail_slot": torch.from_numpy(fail.astype(np.int32))
+              .to(device),
               "dt": float(np.float32(0.005))}
     t = torch.arange(T, dtype=torch.int32, device=device)
     if not batched:
@@ -93,24 +96,37 @@ def _scan_inputs(device, S: int, batched: bool, T: int = 48, C: int = 5):
         xs = (t, f(T, C, S, scale=5.0), f(T, C, S, scale=0.01),
               f(T, C, scale=4.0), f(T, C, scale=0.01), act, acc,
               f(T, C, S) + 0.5)
-        return consts, carry, xs
-    consts.update(tm=f(C, 1, scale=0.01) + 1e-3,
-                  tc=f(C, 1, scale=1e-4) + 1e-5,
-                  new_mean=f(C, 1, scale=50.0) + 1.0)
-    carry = (f(C, S, scale=2.0), f(C, S, scale=0.02) + 1e-3,
-             f(C, S, scale=64.0), f(C, scale=4.0).floor())
-    xs = (t, f(T, C, S, scale=5.0), f(T, C, S, scale=2.0),
-          f(T, C, S, scale=0.8), f(T, C, scale=4.0), f(T, C, scale=2.0),
-          f(T, C, scale=0.8), act, acc, f(T, C, S) + 0.5)
+        work = (carry[0], xs[2])
+    else:
+        consts.update(tm=f(C, 1, scale=0.01) + 1e-3,
+                      tc=f(C, 1, scale=1e-4) + 1e-5,
+                      new_mean=f(C, 1, scale=50.0) + 1.0)
+        carry = (f(C, S, scale=2.0), f(C, S, scale=0.02) + 1e-3,
+                 f(C, S, scale=64.0), f(C, scale=4.0).floor())
+        xs = (t, f(T, C, S, scale=5.0), f(T, C, S, scale=2.0),
+              f(T, C, S, scale=0.8), f(T, C, scale=4.0), f(T, C, scale=2.0),
+              f(T, C, scale=0.8), act, acc, f(T, C, S) + 0.5)
+        work = (carry[0], carry[1], xs[2], xs[3])
+    # a cell of tiny work: its divides leave the kernel's fast window
+    # (dividends under 2^-60), so its slots run again with the exact divide
+    for w in work:
+        w[..., 3, :] *= 1e-30
     return consts, carry, xs
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("S", [1, 3, 16, 40])
+@pytest.mark.parametrize("T", [1, 48, 61])
+@pytest.mark.parametrize("C", [5, 37, 1100])
+@pytest.mark.parametrize("S", [1, 3, 4, 8, 16, 31, 32, 33, 40])
 @pytest.mark.parametrize("family", ["scalar", "batched"])
-def test_scan_kernel_bit_equal_to_plain(cuda, family, S):
+def test_scan_kernel_bit_equal_to_plain(cuda, family, S, C, T):
+    """Segments of 1 to 32 lanes packed into warps (S = 31: a ragged
+    segment; C = 37: a warp not full; C = 1100: blocks of 2 and 4 warps,
+    whose ring of inputs passes 48 KB of shared memory), one block a cell
+    past 32 lanes; T = 1 (the per-slot form) and T not a multiple of the
+    ring's depth; fail slots at the first and last slot."""
     batched = family == "batched"
-    consts, carry, xs = _scan_inputs(cuda, S, batched)
+    consts, carry, xs = _scan_inputs(cuda, S, batched, T=T, C=C)
     kern = vector_step.batched_scan if batched else vector_step.scalar_scan
     plain = ref.batched_scan if batched else ref.scalar_scan
     before = kern.launches
@@ -120,6 +136,50 @@ def test_scan_kernel_bit_equal_to_plain(cuda, family, S):
     assert kern.launches == before + 1
     for k, p in zip(list(kc) + list(ky), list(pc) + list(py)):
         assert torch.equal(k, p)
+
+
+@pytest.mark.gpu
+def test_scan_fast_divide_is_the_ieee_divide(cuda):
+    """The scans' branch-free divide (``FastDiv``) is the IEEE quotient
+    wherever it does not flag its operands, and it flags exactly the pairs
+    outside its window (|a| in [2^-60, 2^80] or a zero over a positive b;
+    b in [2^-44, 2^64]): 2^22 random pairs across the window and past its
+    edges, with mantissas of all ones, powers of two, signed zeros,
+    negative divisors, subnormals, infinities and NaN."""
+    g = np.random.default_rng(7)
+    n = 1 << 22
+
+    def rand(lo, hi):
+        e = g.integers(lo, hi + 1, n).astype(np.float64)
+        x = (g.random(n) + 1.0) * np.exp2(e)
+        return np.where(g.random(n) < 0.5, -x, x).astype(np.float32)
+
+    a, b = rand(-70, 90), np.abs(rand(-50, 70))
+    k = n // 16
+    a[:k] = (a[:k].view(np.uint32) | 0x7FFFFF).view(np.float32)
+    b[k:2 * k] = (b[k:2 * k].view(np.uint32) | 0x7FFFFF).view(np.float32)
+    a[2 * k:3 * k] = np.exp2(g.integers(-60, 80, k)).astype(np.float32)
+    b[3 * k:4 * k] = np.exp2(g.integers(-44, 64, k)).astype(np.float32)
+    a[4 * k:4 * k + 1000] = 0.0
+    a[4 * k + 1000:4 * k + 2000] = -0.0
+    b[4 * k + 1500:4 * k + 2500] *= -1.0
+    special = np.array([np.inf, -np.inf, np.nan, 1e-45, -3e-39, 0.0],
+                       dtype=np.float32)
+    a[5 * k:5 * k + 6] = special
+    b[5 * k + 6:5 * k + 12] = special
+    q, bad = vector_step._fast_div(torch.from_numpy(a).to(cuda),
+                                   torch.from_numpy(b).to(cuda))
+    q, bad = q.cpu().numpy(), bad.cpu().numpy()
+    with np.errstate(all="ignore"):
+        want = a / b
+    aa = np.abs(a)
+    inside = ((((aa >= 2.0 ** -60) & (aa <= 2.0 ** 80))
+               & (b >= 2.0 ** -44) & (b <= 2.0 ** 64))
+              | ((a == 0) & (b > 0)))
+    np.testing.assert_array_equal(bad == 0, inside)
+    assert inside.mean() > 0.5
+    np.testing.assert_array_equal(q[inside].view(np.uint32),
+                                  want[inside].view(np.uint32))
 
 
 @pytest.mark.gpu

@@ -218,3 +218,36 @@ def test_cuda_wrappers_refuse_cpu_tensors(wrapper):
     with pytest.raises(ValueError, match="CUDA"):
         fn(*args)
     assert fn.launches == before
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 5, 8, 9, 16, 17, 31, 32, 33, 40,
+                               64, 1024])
+@pytest.mark.parametrize("C", [1, 5, 37, 117, 20000])
+def test_scan_geometry_covers_every_cell_once(C, S):
+    """The scan kernels' launch geometry: every cell sits in exactly one
+    segment (S <= 32: G >= S lanes, G a power of two, 32 // G cells a
+    warp) or one block (S > 32), and no block lies wholly past C."""
+    G, per_warp, warps, blocks = vector_step._geometry(C, S)
+    if S <= 32:
+        assert S <= G <= 32 and G & (G - 1) == 0
+        assert per_warp == 32 // G
+        assert 1 <= warps <= vector_step.WARPS_PER_BLOCK
+        b, w, seg = np.meshgrid(np.arange(blocks), np.arange(warps),
+                                np.arange(per_warp), indexing="ij")
+        cell = ((b * warps + w) * per_warp + seg).ravel()
+        per_block = warps * per_warp
+    else:
+        assert per_warp == 0 and G % 32 == 0 and G - 32 < S <= G
+        assert warps == G // 32
+        cell = np.arange(blocks)
+        per_block = 1
+    np.testing.assert_array_equal(np.bincount(cell[cell < C], minlength=C),
+                                  np.ones(C, dtype=np.int64))
+    assert (blocks - 1) * per_block < C <= blocks * per_block
+
+
+@pytest.mark.parametrize("C,S", [(5, 0), (5, vector_step.MAX_LANES + 1),
+                                 (0, 4)])
+def test_scan_geometry_refuses_unsupported_shapes(C, S):
+    with pytest.raises(ValueError, match="unsupported scan shape"):
+        vector_step._geometry(C, S)
