@@ -12,8 +12,9 @@ Mamba-2 model (mamba2-1.3b):
 3. holds every kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it: the vector kernels bit-equal (the
    scans at each grid's launch, ``SCAN_CASES``, and as a one-slot
-   launch), the attention and SSD kernels within their stated
-   tolerances;
+   launch; the quantile head at each grid's first launch,
+   ``QUANTILE_CASES``, and a synthetic edge case), the attention and SSD
+   kernels within their stated tolerances;
 4. runs four grids end to end through ``repro_torch.vector.run_cells``
    (the paper's Fig. 1 grid, a 16-server jsq grid, server-failure and
    batched-serving), checks that every vector kernel was launched and
@@ -140,6 +141,8 @@ def ptxas_report(log: str) -> list:
             targs = re.search(r"kernelI(.*?)EEv", mangled)
             if targs:
                 args = re.sub(r"Li(\d+)E", r",\1", targs.group(1))
+                args = re.sub(r"Lb([01])E", lambda b: ",true"
+                              if b.group(1) == "1" else ",false", args)
                 args = re.sub(r"\d+__nv_bfloat16", "bf16,", args)
                 name += "<" + args.replace(",,", ",").strip(",") + ">"
         elif "spill" in ln:
@@ -319,11 +322,40 @@ def check_scan(name, batched, n_real, inputs, time_plain=True) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def check_quantiles(device) -> dict:
-    """Kernel vs plain version of the quantile head at the Fig. 1 grid's
-    width (117 cells x 32768 samples), bit-equal; ragged counts, a
-    count of 0, a count of 1 and ties included."""
-    from repro_torch.kernels import ref, vector_quantiles
+#: the quantile launches of the main path: (check key, grid of
+#: build_grids); each is the grid's first launch, as run_cells makes it
+QUANTILE_CASES = [("fused_quantiles/fig1", "fig1"),
+                  ("fused_quantiles/steady16", "steady"),
+                  ("fused_quantiles/server-failure", "server-failure"),
+                  ("fused_quantiles/batched8", "batched-serving")]
+#: the synthetic edge case at the Fig. 1 grid's width
+QUANTILE_SYNTHETIC = "fused_quantiles/synthetic"
+
+
+def quantile_case(progs, seeds, device) -> tuple:
+    """The grid's first quantile launch exactly as ``run_cells`` makes it:
+    the ``[C, K]`` matrix of that chunk's latencies and its counts, on
+    the card, taken on their way to the kernel."""
+    from repro_torch.kernels import ops
+    from repro_torch.vector import VectorConfig, run_cells
+    seen = []
+    launch = ops.fused_quantiles
+
+    def capture(lat, counts):
+        if not seen:
+            seen.append((lat.clone(), counts.clone()))
+        return launch(lat, counts)
+    ops.fused_quantiles = capture
+    try:
+        run_cells(progs, seeds, VectorConfig(device=device.type))
+    finally:
+        ops.fused_quantiles = launch
+    return seen[0]
+
+
+def synthetic_quantiles(device) -> tuple:
+    """117 cells x 32768 samples (the Fig. 1 grid's width): ragged
+    counts, a count of 0, a count of 1, and ties across a median."""
     C, K = 117, 32768
     g = np.random.default_rng(11)
     counts = np.concatenate([[0, 1, 2, K, K],
@@ -332,30 +364,61 @@ def check_quantiles(device) -> dict:
     for i, n in enumerate(counts):
         lat[i, :n] = g.gamma(2.0, 0.004, n)
     lat[4, :K // 2] = 0.0125                   # ties across the median
-    L = torch.from_numpy(lat).to(device)
-    N = torch.from_numpy(counts).to(device)
+    return (torch.from_numpy(lat).to(device),
+            torch.from_numpy(counts).to(device))
+
+
+def quantile_bound(C: int, samples: int) -> tuple:
+    """(bound ms, 'bytes' | 'operations') of the quantile head over
+    ``samples`` values of ``C`` rows: each value read once, the counts
+    read and the [C, 3] result written, against one compare of each
+    value with each of the 6 ranks over the f32 rate."""
+    moved = samples * 4 + C * 4 + C * 3 * 4
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, samples * 6 / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_quantiles(name, L, N, time_plain=True) -> dict:
+    """Kernel vs plain version of the quantile head on the card,
+    bit-equal (NaN rows where the count is 0); returns the record
+    (times; the bound from the samples the counts hold, and the full
+    matrix's).  ``time_plain=False`` leaves the plain and library times
+    out (None)."""
+    from repro_torch.kernels import ref, vector_quantiles
+    C, K = L.shape
     k = vector_quantiles.fused_quantiles(L, N).cpu().numpy()
     p = ref.fused_quantiles(L, N).cpu().numpy()
     if not np.array_equal(k, p, equal_nan=True):
-        fail("fused_quantiles is not bit-equal to its plain version")
-    err = float(np.abs(k - p)[~np.isnan(p)].max())
-    if not np.isnan(k[0]).all() or np.isnan(k[1:]).any():
-        fail("fused_quantiles: NaN rows do not match the zero counts")
+        bad = int((~((k == p) | (np.isnan(k) & np.isnan(p)))).any(1).sum())
+        fail(f"{name}: fused_quantiles is not bit-equal to its plain "
+             f"version ({bad} of {C} rows differ)")
+    ok = ~np.isnan(p)
+    err = float(np.abs(k - p)[ok].max()) if ok.any() else 0.0
+    counts = N.cpu().numpy()
+    if not (np.isnan(k).all(1) == (counts <= 0)).all():
+        fail(f"{name}: fused_quantiles: NaN rows do not match the zero "
+             f"counts")
+    samples = int(np.minimum(np.maximum(counts, 0), K).sum())
+    bound_ms, bound_by = quantile_bound(C, samples)
     idx = torch.stack([torch.clamp((float(q / 100.0) * (N - 1)).floor(), 0)
                        for q in (50.0, 95.0, 99.0)], -1).long()
 
     def library():
         torch.sort(L, dim=-1).values.gather(-1, idx)
 
-    moved = L.numel() * 4 + N.numel() * 4 + C * 3 * 4
-    # an exact selection compares each element with each of the 6 ranks
-    t_bytes, t_ops = moved / HBM_BYTES_PER_S, C * K * 6 / F32_OPS_PER_S
-    return {"shape": {"C": C, "K": K}, "max_abs_err": err,
-            "ms": cuda_ms(lambda: vector_quantiles.fused_quantiles(L, N)),
-            "plain_ms": cuda_ms(lambda: ref.fused_quantiles(L, N)),
-            "library_ms": cuda_ms(library),
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    rec = {"shape": {"C": C, "K": K, "samples": samples},
+           "max_abs_err": err,
+           "ms": cuda_ms(lambda: vector_quantiles.fused_quantiles(L, N)),
+           "plain_ms": (cuda_ms(lambda: ref.fused_quantiles(L, N))
+                        if time_plain else None),
+           "library_ms": cuda_ms(library) if time_plain else None,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "full_matrix_bound_ms": quantile_bound(C, C * K)[0]}
+    if rec["ms"] < rec["bound_ms"]:
+        fail(f"{name}: {rec['ms']:.5f} ms reads under its bound "
+             f"{rec['bound_ms']:.5f} ms")
+    return rec
 
 
 def attention_bound(bytes_moved: int, flops: float, fl_rate: float):
@@ -829,9 +892,13 @@ def main() -> int:
         rec = check_scan(key, batched, n_real, inputs)
         record["checks"][key] = rec
         print(f"check {key}: {json.dumps(rec)}", flush=True)
-    rec = check_quantiles(device)
-    record["checks"]["fused_quantiles"] = rec
-    print(f"check fused_quantiles: {json.dumps(rec)}", flush=True)
+    for key, grid in QUANTILE_CASES:
+        rec = check_quantiles(key, *quantile_case(*by_name[grid], device))
+        record["checks"][key] = rec
+        print(f"check {key}: {json.dumps(rec)}", flush=True)
+    rec = check_quantiles(QUANTILE_SYNTHETIC, *synthetic_quantiles(device))
+    record["checks"][QUANTILE_SYNTHETIC] = rec
+    print(f"check {QUANTILE_SYNTHETIC}: {json.dumps(rec)}", flush=True)
     for case in FLASH_CASES:
         rec = check_flash(device, *case)
         record["checks"][f"flash_attention/{case[0]}"] = rec
@@ -961,8 +1028,9 @@ def main() -> int:
              "src/repro/kernels/vector_step.py:132",
              "batched_scan/batched8", ("batched_scan/batched8",)),
             ("fused_quantiles", src + "vector_quantiles.cu",
-             "src/repro/kernels/vector_quantiles.py:57", "fused_quantiles",
-             ("fused_quantiles",)),
+             "src/repro/kernels/vector_quantiles.py:57",
+             "fused_quantiles/fig1",
+             tuple(k for k, _ in QUANTILE_CASES) + (QUANTILE_SYNTHETIC,)),
             ("flash_attention", src + "flash_attention.cu",
              "src/repro/kernels/flash_attention.py:84", served_flash,
              tuple(f"flash_attention/{c[0]}" for c in FLASH_CASES)),

@@ -12,7 +12,12 @@ reports, per grid:
   analytic terms, waiting for the device, sampling, quantiles,
   extraction);
 * on the card, the device time of one run by kernel from
-  ``torch.profiler``, and the device's busy share of the wall time.
+  ``torch.profiler``, and the device's busy share of the wall time;
+* the quantile head's host seconds in one run (``_grid_quantiles``,
+  matrix assembly, host->device copy, kernel and device->host copy,
+  timed around each call with profiling off) and its share of that
+  run's wall, and one replay of those four steps on the run's first
+  chunk, each ended by a synchronize.
 
 The record goes to ``chiprun_out/vector_breakdown.json``.  cProfile adds
 a cost per Python call, so the phase times are shares, not absolutes:
@@ -97,6 +102,53 @@ def device_time(fn) -> dict:
     return out
 
 
+def quantile_head(run) -> dict:
+    """The quantile head of one ``run()``: its seconds and share of the
+    wall, and a replay of its steps on the first chunk's latencies."""
+    from repro_torch.kernels import ops
+    from repro_torch.vector import runtime as R
+    real, calls, first = R._grid_quantiles, [], []
+
+    def timed(lats, device):
+        if not first:
+            first.append((lats, device))
+        t0 = time.perf_counter()
+        out = real(lats, device)
+        calls.append(time.perf_counter() - t0)
+        return out
+    R._grid_quantiles = timed
+    try:
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
+    finally:
+        R._grid_quantiles = real
+    lats, device = first[0]
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+    steps, clock = {}, time.perf_counter
+    t0 = clock()
+    mat, counts = R._quantile_matrix(lats)
+    steps["assembly_s"] = clock() - t0
+    t0 = clock()
+    L = torch.from_numpy(mat).to(device)
+    N = torch.from_numpy(counts).to(device)
+    sync()
+    steps["h2d_s"] = clock() - t0
+    t0 = clock()
+    out = ops.fused_quantiles(L, N)
+    sync()
+    steps["kernel_s"] = clock() - t0
+    t0 = clock()
+    out.cpu()
+    steps["d2h_s"] = clock() - t0
+    return {"calls": len(calls), "head_s": sum(calls), "wall_s": wall,
+            "share": sum(calls) / wall, "shape": list(mat.shape),
+            "first_chunk_steps": steps}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -124,7 +176,8 @@ def main(argv=None) -> int:
         wall = statistics.median(walls)
         rec = {"cells": len(progs), "wall_s": wall, "walls_s": walls,
                "cells_per_s": len(progs) / wall,
-               "host_phases_s": host_phases(run)}
+               "host_phases_s": host_phases(run),
+               "quantile_head": quantile_head(run)}
         if device.type == "cuda":
             dev = device_time(run)
             busy = sum(dev.values()) / 1e6
@@ -139,6 +192,13 @@ def main(argv=None) -> int:
         for func, s in sorted(rec["host_phases_s"].items(),
                               key=lambda kv: -kv[1]):
             print(f"  {s:8.4f} s  {LABELS[func]}")
+        head = rec["quantile_head"]
+        print(f"  quantile head: {head['head_s']:.6f} s of a "
+              f"{head['wall_s']:.4f} s wall ({100 * head['share']:.3f} %), "
+              f"{head['calls']} "
+              f"launch(es); first chunk {head['shape']}: "
+              + ", ".join(f"{k[:-2]} {v * 1e3:.3f} ms"
+                          for k, v in head["first_chunk_steps"].items()))
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "vector_breakdown.json").write_text(json.dumps(record, indent=1))

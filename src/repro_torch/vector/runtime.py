@@ -534,17 +534,26 @@ def _grid_quantiles(lats: list, device: torch.device) -> np.ndarray:
     when a cell has no samples): ONE fused launch over a [C, K]
     +inf-padded f32 matrix.  Means are NOT computed here: the row mean
     stays host-side f64 so it cannot depend on the pad width K."""
-    C = len(lats)
-    counts = np.array([lat.size for lat in lats], np.int32)
-    K = int(counts.max()) if C else 0
-    if K == 0:
-        return np.full((C, 3), float("nan"))
-    mat = np.full((C, K), np.inf, np.float32)
-    for i, lat in enumerate(lats):
-        mat[i, :lat.size] = lat
+    mat, counts = _quantile_matrix(lats)
+    if mat is None:
+        return np.full((len(lats), 3), float("nan"))
     out = ops.fused_quantiles(torch.from_numpy(mat).to(device),
                               torch.from_numpy(counts).to(device))
     return out.cpu().numpy().astype(np.float64)
+
+
+def _quantile_matrix(lats: list) -> tuple:
+    """The fused launch's inputs: ([C, K] f32 samples, +inf past each
+    count; [C] int32 counts), K the largest count; (None, counts) when
+    no cell has a sample."""
+    counts = np.array([lat.size for lat in lats], np.int32)
+    K = int(counts.max()) if len(lats) else 0
+    if K == 0:
+        return None, counts
+    mat = np.full((len(lats), K), np.inf, np.float32)
+    for i, lat in enumerate(lats):
+        mat[i, :lat.size] = lat
+    return mat, counts
 
 
 def _finish_cell(prog: VectorProgram, batched: bool, cell: dict,

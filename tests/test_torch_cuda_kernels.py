@@ -55,6 +55,8 @@ from repro_torch.kernels import (decode_attention, flash_attention, ops,
                                  ref, ssd_scan, vector_quantiles,
                                  vector_step)
 
+from _quantile_rows import KINDS, quantile_rows  # noqa: E402
+
 #: kernel vs plain attention, relative to max|v| (see the module doc)
 ATTN_TOL = 2.0 ** -7
 F32_TOL = 2e-5
@@ -182,22 +184,57 @@ def test_scan_fast_divide_is_the_ieee_divide(cuda):
                                   want[inside].view(np.uint32))
 
 
-@pytest.mark.gpu
-def test_fused_quantiles_kernel_bit_equal_to_plain(cuda):
-    g = np.random.default_rng(3)
-    K = 5000
-    counts = np.concatenate([[0, 1, 2, K, 7],
-                             g.integers(1, K, 20)]).astype(np.int32)
-    lat = np.full((counts.size, K), np.inf, np.float32)
-    for i, n in enumerate(counts):
-        lat[i, :n] = g.gamma(2.0, 0.01, n)
-    lat[4, :7] = 0.25                            # all ties
-    L = torch.from_numpy(lat).to(cuda)
-    N = torch.from_numpy(counts).to(cuda)
+def _quantiles_bit_equal(L, N) -> np.ndarray:
+    """The quantile kernel on (L, N) against its plain version on the
+    same tensors: bit-equal, NaN rows exactly where the count is 0."""
     k = vector_quantiles.fused_quantiles(L, N).cpu().numpy()
     p = ref.fused_quantiles(L, N).cpu().numpy()
-    np.testing.assert_array_equal(k, p)
-    assert np.isnan(k[0]).all() and not np.isnan(k[1:]).any()
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(k.view(np.uint32)[~np.isnan(p)],
+                                  p.view(np.uint32)[~np.isnan(p)])
+    np.testing.assert_array_equal(np.isnan(k).all(1),
+                                  N.cpu().numpy() <= 0)
+    np.testing.assert_array_equal(np.isnan(k), np.isnan(p))
+    return k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [1, 13, 117, 300])
+@pytest.mark.parametrize("K", [1, 3, 129, 4097, 32768, 32771, 100_003,
+                               300_000, 2 ** 19 + 3])
+def test_fused_quantiles_kernel_bit_equal_to_plain(cuda, K, C):
+    """Every cluster size (launch_plan: 1, 2, 4 and 8 blocks a row, held
+    in shared memory), rows whose 16-byte groups start anywhere
+    (K % 4 != 0), and the streamed path (K = 2^19 + 3, 8 blocks a row);
+    rows of every kind of _quantile_rows."""
+    lat, counts = quantile_rows(C, K, seed=3)
+    _quantiles_bit_equal(torch.from_numpy(lat).to(cuda),
+                         torch.from_numpy(counts).to(cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("K", [4097, 32771, 2 ** 19 + 3])
+@pytest.mark.parametrize("kind", KINDS)
+def test_fused_quantiles_kernel_edge_rows(cuda, kind, K, offset):
+    """13 rows of one kind (counts of 0 and 1 among them) in a matrix
+    that starts ``offset`` floats past a 16-byte boundary."""
+    lat, counts = quantile_rows(13, K, seed=5, kinds=(kind,))
+    buf = torch.empty(lat.size + offset, dtype=torch.float32, device=cuda)
+    L = buf[offset:].view(lat.shape)
+    L.copy_(torch.from_numpy(lat))
+    k = _quantiles_bit_equal(L, torch.from_numpy(counts).to(cuda))
+    assert (k[1] == lat[1, 0]).all()             # one sample: itself
+
+
+@pytest.mark.gpu
+def test_fused_quantiles_kernel_counts_past_k(cuda):
+    """A count above K clamps the ranks into the row, as the sort's
+    gather does; a negative count is an empty row."""
+    g = np.random.default_rng(9)
+    lat = g.gamma(2.0, 0.004, (4, 1000)).astype(np.float32)
+    N = torch.tensor([1000, 1001, 5000, -3], dtype=torch.int32, device=cuda)
+    _quantiles_bit_equal(torch.from_numpy(lat).to(cuda), N)
 
 
 def _bf16(g, *shape, device, dtype=torch.bfloat16):

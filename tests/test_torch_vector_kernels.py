@@ -21,7 +21,13 @@ functions and the port's counterparts:
   order statistics, but XLA contracts the interpret-mode kernel's lerp
   ``b - (b - a) * (1 - t)`` into an FMA where the oracle rounds the
   product first (the oracle is what the JAX runtime's ``impl="ref"``
-  path runs).
+  path runs).  XLA on the CPU also flushes subnormals to zero, which
+  PyTorch and the card keep: rows of subnormal latencies are held
+  bit-equal to the same oracle written in NumPy f32, and to JAX's once
+  their subnormal results are flushed.  The edge rows are those of the
+  card tests (``tests/_quantile_rows.py``);
+* the quantile kernel's launch plan (``vector_quantiles.launch_plan``,
+  a pure function of the shape) over a range of shapes.
 
 On the CPU, ``kernels.ops`` takes these plain versions; the CUDA kernels
 themselves are held against them on the card
@@ -42,6 +48,8 @@ from repro.kernels import vector_step as jvs  # noqa: E402
 
 from repro_torch.kernels import ops, ref, vector_quantiles  # noqa: E402
 from repro_torch.kernels import vector_step  # noqa: E402
+
+from _quantile_rows import KINDS, quantile_rows  # noqa: E402
 
 C = 8                     # one Pallas cell tile
 DT = 0.005
@@ -167,9 +175,29 @@ def _quantile_case(seed: int, K: int = 300):
     return lat, counts
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2])
-def test_fused_quantiles_match_jax(seed):
-    lat, counts = _quantile_case(seed)
+def _numpy_quantiles(lat, counts):
+    """The sort oracle in NumPy f32, which keeps subnormals: np.sort, the
+    floor/ceil ranks of f32(q / 100) * (n - 1), numpy's lerp."""
+    x = np.sort(lat, axis=1)
+    nf = counts.astype(np.float32)[:, None]
+    pos = np.float32([q / 100.0 for q in (50.0, 95.0, 99.0)]) * (nf - 1)
+    lo, hi = np.floor(pos), np.ceil(pos)
+    K = lat.shape[1]
+    a = np.take_along_axis(x, np.clip(lo, 0, K - 1).astype(np.int64), 1)
+    b = np.take_along_axis(x, np.clip(hi, 0, K - 1).astype(np.int64), 1)
+    t = pos - lo
+    with np.errstate(invalid="ignore"):
+        out = np.where(t >= 0.5, b - (b - a) * (np.float32(1) - t),
+                       a + (b - a) * t)
+    return np.where(counts[:, None] > 0, out, np.float32(np.nan))
+
+
+def _hold_quantiles_to_jax(lat, counts):
+    """ops.fused_quantiles on the CPU: bit-equal to the JAX sort oracle,
+    within 1 ulp of the interpret-mode Pallas kernel, and bit-equal to
+    the oracle in NumPy (module doc).  XLA on the CPU flushes subnormals
+    to zero, so where a result is subnormal JAX's functions are held to
+    it flushed."""
     want = np.asarray(jref.fused_quantiles(jnp.asarray(lat),
                                            jnp.asarray(counts)))
     kern = np.asarray(jvq.fused_quantiles(jnp.asarray(lat),
@@ -177,13 +205,39 @@ def test_fused_quantiles_match_jax(seed):
                                           interpret=True))
     got = ops.fused_quantiles(torch.from_numpy(lat),
                               torch.from_numpy(counts)).numpy()
-    np.testing.assert_array_equal(got, want)     # NaN rows compare equal
+    np.testing.assert_array_equal(got, _numpy_quantiles(lat, counts))
+    tiny = np.finfo(np.float32).tiny
+    flushed = np.where(np.abs(got) < tiny, np.float32(0), got)
+    np.testing.assert_array_equal(flushed, want)  # NaN rows compare equal
     np.testing.assert_array_equal(np.isnan(got), np.isnan(kern))
     ok = ~np.isnan(got)
-    np.testing.assert_array_max_ulp(got[ok], kern[ok], maxulp=1)
+    np.testing.assert_array_max_ulp(flushed[ok], kern[ok], maxulp=1)
+    np.testing.assert_array_equal(np.isnan(got).all(1), counts == 0)
+    return got
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_fused_quantiles_match_jax(seed):
+    lat, counts = _quantile_case(seed)
+    got = _hold_quantiles_to_jax(lat, counts)
     assert np.isnan(got[0]).all() and not np.isnan(got[1:]).any()
     assert (got[1] == lat[1, 0]).all()           # one sample: itself
     assert (got[4] == np.float32(0.25)).all()
+
+
+@pytest.mark.parametrize("K", [1, 3, 129, 300])
+@pytest.mark.parametrize("kind", KINDS)
+def test_fused_quantiles_edge_rows_match_jax(kind, K):
+    """The card tests' edge rows at CPU-sized K: 13 rows of one kind
+    (row 0 with a count of 0, row 1 with a count of 1)."""
+    lat, counts = quantile_rows(13, K, kinds=(kind,))
+    got = _hold_quantiles_to_jax(lat, counts)
+    for i in np.flatnonzero(counts):             # within the row's range
+        vals = lat[i, :counts[i]]
+        assert (vals.min() <= got[i]).all() and (got[i] <= vals.max()).all()
+    assert (got[1] == lat[1, 0]).all()           # one sample: itself
+    if kind == "ties":
+        assert (got[1:] == np.float32(0.25)).all()
 
 
 def test_quantile_ranks_match_jax():
@@ -251,3 +305,57 @@ def test_scan_geometry_covers_every_cell_once(C, S):
 def test_scan_geometry_refuses_unsupported_shapes(C, S):
     with pytest.raises(ValueError, match="unsupported scan shape"):
         vector_step._geometry(C, S)
+
+
+def _slice_width(K: int, cs: int) -> int:
+    """ceil(K / cs) rounded up to a 16-byte group of f32."""
+    per_block = -(-K // cs)
+    return -(-per_block // 4) * 4
+
+
+@pytest.mark.parametrize("K", [1, 3, 4, 129, 2047, 4097, 32768, 32771,
+                               100_003, 393_056, 393_057, 2 ** 19 + 3,
+                               4_000_000])
+@pytest.mark.parametrize("C", [1, 13, 26, 52, 117, 132, 300])
+def test_quantile_launch_plan_covers_each_row(C, K):
+    """The quantile kernel's launch plan: a cluster of 1, 2, 4 or 8
+    blocks a row whose slices (the kernel's split of a row's m values:
+    round4(ceil(m / cluster)) each) cover the values once and fit the
+    block's shared memory; the row is streamed only when 8 blocks
+    cannot hold it."""
+    cs, width, resident = vector_quantiles.launch_plan(C, K)
+    assert cs in (1, 2, 4, 8) and width % 4 == 0 and width * cs >= K
+    fixed = vector_quantiles.HIST_BYTES + 4 * 4
+    assert resident == (fixed + 4 * width <= vector_quantiles.SMEM_BYTES)
+    if not resident:
+        assert cs == vector_quantiles.MAX_CLUSTER
+    for m in sorted({1, 2, K // 3 + 1, K - 1, K} - {0}):
+        w = _slice_width(m, cs)
+        assert w <= width
+        lo = [min(b * w, m) for b in range(cs)]
+        hi = [min(s + w, m) for s in lo]
+        assert lo[0] == 0 and hi[-1] == m and lo[1:] == hi[:-1]
+    # a cluster grows only while the doubled grid keeps one block an SM
+    # and each block MIN_SLICE values, or until the slice fits
+    if cs > 1:
+        grown = (C * cs <= vector_quantiles.H100_SMS
+                 and K // cs >= vector_quantiles.MIN_SLICE)
+        half = fixed + 4 * _slice_width(K, cs // 2)
+        assert grown or half > vector_quantiles.SMEM_BYTES
+
+
+@pytest.mark.parametrize("C,K,cluster", [(117, 32768, 1), (52, 32768, 2),
+                                         (13, 32768, 2), (26, 18099, 1),
+                                         (300, 32768, 1), (1, 300_000, 8)])
+def test_quantile_launch_plan_at_the_grids(C, K, cluster):
+    """The grids' first launches (fig1, steady16, server-failure,
+    batched8: C x K as chip_smoke's QUANTILE_CASES capture them), each
+    slice held in shared memory; and a long row that needs 8 blocks."""
+    assert vector_quantiles.launch_plan(C, K) == \
+        (cluster, _slice_width(K, cluster), True)
+
+
+@pytest.mark.parametrize("C,K", [(0, 5), (5, 0)])
+def test_quantile_launch_plan_refuses_empty_shapes(C, K):
+    with pytest.raises(ValueError, match="unsupported quantile shape"):
+        vector_quantiles.launch_plan(C, K)
