@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's main paths on the card, the vector grid runtime and
-real-model serving of a dense attention model (phi3-mini-3.8b) and of a
-Mamba-2 model (mamba2-1.3b):
+Drives the port's main paths on the card, the vector grid runtime (the
+canonical grids and the chaos grids, whose timelines the control
+pre-pass shapes) and real-model serving of a dense attention model
+(phi3-mini-3.8b) and of a Mamba-2 model (mamba2-1.3b):
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
@@ -20,6 +21,15 @@ Mamba-2 model (mamba2-1.3b):
    batched-serving), checks that every vector kernel was launched and
    every row is finite, and holds three cells of each grid against the
    same cells run on the CPU;
+4b. runs the chaos grids the same way (``CHAOS_GRIDS``: the flash crowd
+   under the autoscaler and under the AIMD shedder, a correlated
+   failure, a gray failure; full duration, 13 reps a point), each with
+   ``scalar_scan`` and ``fused_quantiles`` launched once, three cells of
+   each against the CPU, the control pre-pass's ``control_log`` read on
+   the card and on the CPU, and ``flash-crowd-autoscale`` at seed 3 on
+   the host's event simulator (``sim``) against the card's vector
+   runtime within the reference's bounds (``SIM_N_REL``,
+   ``SIM_SCALE_S``);
 5. runs phi3-mini-3.8b at full width and a depth of 2 layers on the CPU
    (plain versions) and on the card (kernels), from the same seeded
    weights: a 128-token prompt and 8 greedy tokens, equal tokens and
@@ -165,11 +175,24 @@ def spawn_seed(base_seed: int, point: int, rep: int) -> int:
     return int(ss.generate_state(1, np.uint32)[0])
 
 
+def scenario_grid(name, points, **kw) -> tuple:
+    """(name, programs, seeds): each point of a registered scenario x 13
+    reps, every cell with its own sweep-derived seed."""
+    from repro_torch.scenarios import get
+    from repro_torch.vector import compile_experiment
+    progs, seeds = [], []
+    for i, over in enumerate(points):
+        for rep in range(13):
+            sc = get(name, seed=spawn_seed(1, i, rep), **kw, **over)
+            progs.append(compile_experiment(sc.compile()))
+            seeds.append((sc.seed, rep))
+    return name, progs, seeds
+
+
 def build_grids() -> list:
     """(name, programs, seeds) of the four main-path grids."""
     from repro_torch.core.client import ClientConfig, ConstantQPS
     from repro_torch.core.harness import Experiment, ServerSpec
-    from repro_torch.scenarios import get
     from repro_torch.vector import compile_experiment
 
     grids = []
@@ -188,15 +211,6 @@ def build_grids() -> list:
             seeds.append((exp.seed, rep))
     grids.append(("fig1", progs, seeds))
 
-    def scenario_grid(name, points, **kw):
-        progs, seeds = [], []
-        for i, over in enumerate(points):
-            for rep in range(13):
-                sc = get(name, seed=spawn_seed(1, i, rep), **kw, **over)
-                progs.append(compile_experiment(sc.compile()))
-                seeds.append((sc.seed, rep))
-        return name, progs, seeds
-
     # multi-server: 16 one-worker servers behind jsq (the water-fill over
     # servers), offered load up to ~0.94 of capacity
     grids.append(scenario_grid(
@@ -207,6 +221,25 @@ def build_grids() -> list:
         "batched-serving", [dict(qps=q) for q in (300.0, 600.0)],
         n_servers=8))
     return grids
+
+
+#: the chaos grids' points (``repro_torch.scenarios.chaos``, full
+#: duration): the autoscaler and the AIMD shedder on the flash crowd
+#: (T 9000, S 6, four standby columns), two servers failing in one slot
+#: (T 8000, S 6), a server slowed 20x (T 6000, S 3)
+CHAOS_GRIDS = [("flash-crowd-autoscale",
+                [{}, dict(controller="admission_shedder", peak_qps=4000.0)]),
+               ("correlated-failure", [{}]),
+               ("gray-failure", [{}])]
+#: the reference's bounds on the vector runtime against ``sim``
+#: (tests/test_control.py: served mass, rel; the first scale-out, s)
+SIM_N_REL = 0.05
+SIM_SCALE_S = 2.0
+
+
+def build_chaos_grids() -> list:
+    """(name, programs, seeds) of the chaos grids: 2 x 13, 13, 13 cells."""
+    return [scenario_grid(name, points) for name, points in CHAOS_GRIDS]
 
 
 def scan_case(progs, seeds, device):
@@ -851,6 +884,74 @@ def rows_close(gpu, cpu) -> str:
     return ""
 
 
+def chaos_experiment(name: str, i: int):
+    """The compiled scenario of cell ``i`` of a chaos grid."""
+    from repro_torch.scenarios import get
+    points = dict(CHAOS_GRIDS)[name]
+    point, rep = divmod(i, 13)
+    return get(name, seed=spawn_seed(1, point, rep),
+               **points[point]).compile()
+
+
+def check_chaos_control(chaos) -> dict:
+    """The control pre-pass's actions, read through ``VectorRuntime`` on
+    the card and on the CPU for three cells of each chaos grid: equal."""
+    from repro_torch.vector import VectorConfig, VectorRuntime
+    out = {}
+    for name, progs, seeds in chaos:
+        for i in (0, len(progs) // 2, len(progs) - 1):
+            logs = []
+            for device in ("cuda", "cpu"):
+                rt = VectorRuntime(chaos_experiment(name, i),
+                                   rep=seeds[i][1],
+                                   config=VectorConfig(device=device))
+                rt.run()
+                logs.append(rt.control_log)
+            if logs[0] != logs[1] or logs[0] != progs[i].control_actions:
+                fail(f"{name} cell {i}: control_log on the card "
+                     f"{logs[0]} != the CPU's {logs[1]}")
+            out[f"{name}/{i}"] = logs[0]
+        print(f"control_log {name}: card equal to CPU at 3 cells "
+              f"({sum(len(v) for k, v in out.items() if k.startswith(name))}"
+              f" actions)", flush=True)
+    return out
+
+
+def check_chaos_sim() -> dict:
+    """``flash-crowd-autoscale`` at seed 3 on the host's event simulator
+    and on the card's vector runtime: the control logs, served requests
+    within ``SIM_N_REL`` and the first scale-out within ``SIM_SCALE_S``
+    of each other (the reference's own bounds)."""
+    from repro_torch.core.runtime import run_scenario
+    from repro_torch.scenarios import get
+    from repro_torch.vector import VectorConfig
+    sc = get("flash-crowd-autoscale", seed=3)
+    t0 = time.perf_counter()
+    sim = run_scenario(sc, "sim")
+    sim_wall = time.perf_counter() - t0
+    vec = run_scenario(sc, "vector", vector_config=VectorConfig(
+        device="cuda"))
+    n_sim, n_vec = sim.telemetry.overall().n, vec.telemetry.overall().n
+    print(f"sim control_log (host): {sim.control_log}", flush=True)
+    print(f"vector control_log (card): {vec.control_log}", flush=True)
+    print(f"sim vs vector flash-crowd-autoscale seed 3: served {n_sim} vs "
+          f"{n_vec}; sim wall {sim_wall:.3f} s on the host", flush=True)
+    if vec.unsupported:
+        fail(f"flash-crowd-autoscale on the card: unsupported "
+             f"{vec.unsupported}")
+    if not math.isclose(n_vec, n_sim, rel_tol=SIM_N_REL):
+        fail(f"sim vs vector: served {n_sim} vs {n_vec}, beyond rel "
+             f"{SIM_N_REL}")
+    ups = [(t, p) for t, k, p in sim.control_log if k == "set_scale"]
+    vups = [(t, p) for t, k, p in vec.control_log if k == "set_scale"]
+    if not ups or not vups or abs(ups[0][0] - vups[0][0]) > SIM_SCALE_S \
+            or ups[0][1] != vups[0][1]:
+        fail(f"sim vs vector: first set_scale {ups[:1]} vs {vups[:1]}")
+    return {"sim_control_log": sim.control_log,
+            "vector_control_log": vec.control_log, "sim_n": n_sim,
+            "vector_n": n_vec, "sim_wall_s": sim_wall}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a "
@@ -934,8 +1035,33 @@ def main() -> int:
             if r.n <= 0 or not all(math.isfinite(v) for v in vals):
                 fail(f"{name} cell {i}: n={r.n} row {vals} not finite")
 
+    # ---- main path 1b, the chaos grids (control pre-pass) on the card ------
+    chaos = build_chaos_grids()
+    record["e2e_chaos"], chaos_launches = {}, {}
+    for grid in chaos:
+        name = grid[0]
+        for k in all_kernels:
+            k.launches = 0
+        rows, e2e = run_grids([grid])
+        results[name] = rows[name]
+        record["e2e_chaos"][name] = e2e[name]
+        n = {k.__name__: k.launches for k in vector_kernels}
+        chaos_launches[name] = n
+        print(f"launches on the chaos grid {name}: {n}", flush=True)
+        if n["scalar_scan"] != 1 or n["fused_quantiles"] != 1:
+            fail(f"chaos grid {name}: scalar_scan and fused_quantiles "
+                 f"must launch once each, got {n}")
+        for i, r in enumerate(rows[name]):
+            vals = (r.mean, r.p50, r.p95, r.p99)
+            if r.n <= 0 or not all(math.isfinite(v) for v in vals):
+                fail(f"{name} cell {i}: n={r.n} row {vals} not finite")
+    for name in ("scalar_scan", "fused_quantiles"):
+        launches[name] += sum(n[name] for n in chaos_launches.values())
+    record["chaos_launches"] = chaos_launches
+    record["chaos_sim"] = check_chaos_sim()
+
     # ---- three cells of each grid against the CPU --------------------------
-    for name, progs, seeds in grids:
+    for name, progs, seeds in grids + chaos:
         pick = [0, len(progs) // 2, len(progs) - 1]
         cpu = run_cells([progs[i] for i in pick], [seeds[i] for i in pick],
                         VectorConfig(device="cpu"))
@@ -949,6 +1075,7 @@ def main() -> int:
                 (row.n, row.mean, row.p50, row.p95, row.p99)
         print(f"cpu parity {name}: cells {pick} match "
               f"({same} of 3 bit-identical)", flush=True)
+    record["chaos_control"] = check_chaos_control(chaos)
 
     # ---- full width, reduced depth: the card against the CPU ---------------
     record["full_width"] = check_full_width(device)

@@ -1,8 +1,10 @@
 """Where the time of the port's vector runtime goes, grid by grid.
 
     python3 scripts/vector_breakdown.py [--device cuda|cpu] [--reps N]
+        [--grids all|main|chaos]
 
-Runs the four main-path grids of ``chip_smoke.py`` through
+Runs the four main-path grids and the three chaos grids of
+``chip_smoke.py`` (``--grids`` picks either set) through
 ``repro_torch.vector.run_cells`` (after one warm-up run each) and
 reports, per grid:
 
@@ -153,9 +155,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--grids", default="all",
+                    choices=["all", "main", "chaos"])
     args = ap.parse_args(argv)
 
-    from chip_smoke import build_grids
+    from chip_smoke import build_chaos_grids, build_grids
     from repro_torch.device import resolve_device
     from repro_torch.vector import VectorConfig, run_cells
 
@@ -164,7 +168,9 @@ def main(argv=None) -> int:
     record = {"device": (torch.cuda.get_device_name(0)
                          if device.type == "cuda" else "cpu"),
               "grids": {}}
-    for name, progs, seeds in build_grids():
+    grids = ((build_grids() if args.grids != "chaos" else [])
+             + (build_chaos_grids() if args.grids != "main" else []))
+    for name, progs, seeds in grids:
         def run():
             run_cells(progs, seeds, cfg)
         run()                                    # warm-up (build, load)

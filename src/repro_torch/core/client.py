@@ -1,7 +1,6 @@
 """Workload generators — the TailBench++ client module.
 
-Copy of ``repro.core.client`` without ``BatchedClientGenerator`` (the
-simulator's opt-in fast path; the port has no simulator yet).
+Copy of ``repro.core.client``.
 
 Feature 3 (independent client behavior): every client owns its start time,
 request budget, and service-demand distribution.
@@ -12,8 +11,10 @@ trace schedules model the cited real-world patterns).
 Arrivals are open-loop Poisson (exponential inter-arrival at the current
 rate) — TailBench's generator — with Zipf-like service demands preserved.
 The vector compiler reads the schedules' ``rate_array`` and the
-``ClientConfig`` fields; ``EngineRuntime`` draws arrivals one by one
-from ``ClientGenerator``, with the reference's RNG streams.
+``ClientConfig`` fields; the simulator and ``EngineRuntime`` draw
+arrivals one by one from ``ClientGenerator``, with the reference's RNG
+streams (``BatchedClientGenerator`` is the simulator's opt-in bulk
+path).
 """
 from __future__ import annotations
 
@@ -302,3 +303,59 @@ class ClientGenerator:
             if self._sample_sizes is not None:
                 self.last_sizes = self._sample_sizes(self._size_rng)
             return t, self._sample(self.rng)
+
+
+class BatchedClientGenerator(ClientGenerator):
+    """Vectorized arrival generation for constant-rate open-loop clients.
+
+    Draws inter-arrival gaps and service demands in numpy chunks instead
+    of one scalar RNG call per request — ~10x cheaper per arrival, which
+    matters when a 10k-server run pumps millions of requests.  The
+    arrival process is the same Poisson law (for a constant rate the
+    MAX_STEP re-gridding of the base class is a statistical no-op by
+    memorylessness), but the RNG stream differs from the scalar path, so
+    this is opt-in (``SimConfig.fast_clients``) and never used by the
+    bit-compatible figure configs.
+    """
+
+    CHUNK = 4096
+
+    def __init__(self, cfg: ClientConfig, profile, rng_stream: int = 0,
+                 lengths=None):
+        super().__init__(cfg, profile, rng_stream, lengths=lengths)
+        if not isinstance(cfg.schedule, ConstantQPS) or cfg.schedule.qps <= 0:
+            raise ValueError("BatchedClientGenerator needs ConstantQPS > 0")
+        self._scale = 1.0 / cfg.schedule.qps
+        self._ts: list[float] = []
+        self._ds: list[float] = []
+        self._i = 0
+
+    def _refill(self) -> int:
+        k = min(self.CHUNK, int(self._budget - self.sent)) \
+            if self._budget != math.inf else self.CHUNK
+        if k <= 0:
+            return 0
+        gaps = self.rng.standard_exponential(k) * self._scale
+        ts = self.t + np.cumsum(gaps)
+        self._ts = ts.tolist()              # python floats: fast scalar reads
+        self._ds = self.profile.sample_batch(self.rng, k).tolist()
+        self._i = 0
+        return k
+
+    def next_arrival(self) -> Optional[tuple]:
+        if self.sent >= self._budget:
+            return None
+        i = self._i
+        if i >= len(self._ts):
+            if self._refill() == 0:
+                return None
+            i = 0
+        t = self._ts[i]
+        self._i = i + 1
+        self.t = t
+        if t >= self._end:
+            return None
+        self.sent += 1
+        if self._sample_sizes is not None:
+            self.last_sizes = self._sample_sizes(self._size_rng)
+        return t, self._ds[i]

@@ -9,7 +9,10 @@ Trimmed copy of ``repro.core.profiles``:
 * ``ScalarService`` (one worker slot per request) and
   ``BatchedService`` (continuous batching, one decode step costs
   ``max(t_compute_per_seq * batch, t_memory)`` seconds);
-* ``apply_service_noise``, the execution-noise law of the stub engines.
+* ``apply_service_noise``, the execution-noise law of the simulator's
+  servers and the stub engines;
+* ``BatchScheduler``, the prefill-priority continuous-batching op
+  sequencer the simulator's batched servers drive.
 
 ``BatchedService`` has no ``from_arch`` here: calibrating it from a
 model's roofline needs the model stack and the card's own figures,
@@ -18,7 +21,9 @@ which this package does not carry yet.
 from __future__ import annotations
 
 import math
+from collections import deque
 from dataclasses import dataclass, field
+from typing import Callable, Optional
 
 import numpy as np
 
@@ -180,6 +185,13 @@ class BatchedService:
     t_prefill_per_token: float           # s per prompt token
     kind: str = field(default="batched", init=False)
 
+    def step_time(self, batch: int) -> float:
+        return max(self.t_compute_per_seq * max(batch, 1), self.t_memory)
+
+    def prefill_time(self, prompt_tokens: int) -> float:
+        return max(self.t_prefill_per_token * max(prompt_tokens, 1),
+                   self.t_memory)
+
     def prefill_time_array(self, prompt_tokens):
         return np.maximum(
             self.t_prefill_per_token * np.maximum(prompt_tokens, 1),
@@ -191,3 +203,123 @@ def resolve_service_model(model, profile) -> "ScalarService | BatchedService":
     if model is None:
         return ScalarService(profile)
     return model
+
+
+# ---------------------------------------------------------------------------
+# Shared continuous-batching op sequencer
+# ---------------------------------------------------------------------------
+@dataclass(slots=True)
+class BatchItem:
+    """One request inside a ``BatchScheduler`` (key is caller-opaque:
+    a ``Request`` in the simulator, a req_id in the stub engine)."""
+    key: object
+    prompt_tokens: int
+    remaining: int                       # new tokens still to emit
+
+
+class BatchScheduler:
+    """Prefill-priority continuous batching, one op at a time.
+
+    Mirrors ``serving.engine.InferenceEngine.step()``: each op is either
+    ONE prefill (a waiting request enters a free slot; its first token is
+    emitted when the prefill finishes) or ONE batched decode step (every
+    active sequence emits one token).  Requests whose token budget is
+    exhausted complete at the end of the op that produced their last
+    token.
+
+    The class is clock-free: callers ask ``start_op`` for the next op's
+    base duration (un-scaled by server speed/noise) and later apply it
+    with ``finish_op``.  The simulator drives it from calendar-queue
+    events; ``BatchedStubEngine`` drives it from a wall/virtual clock —
+    identical dynamics by construction.
+    """
+
+    __slots__ = ("service", "max_batch", "waiting", "active", "tokens_done",
+                 "op")
+
+    def __init__(self, service: BatchedService, max_batch: int):
+        self.service = service
+        self.max_batch = max_batch
+        self.waiting: deque[BatchItem] = deque()
+        self.active: list[BatchItem] = []
+        self.tokens_done = 0
+        self.op: Optional[tuple] = None          # ("prefill", item) | ("decode",)
+
+    # ---- submission / introspection ---------------------------------------
+    def submit(self, key, prompt_tokens: int, max_new_tokens: int) -> None:
+        self.waiting.append(BatchItem(key, max(int(prompt_tokens), 1),
+                                      max(int(max_new_tokens), 1)))
+
+    def pending(self) -> int:
+        return len(self.waiting)
+
+    def occupancy(self) -> int:
+        """Sequences resident in the batch (incl. one mid-prefill)."""
+        n = len(self.active)
+        if self.op is not None and self.op[0] == "prefill":
+            n += 1
+        return n
+
+    def idle(self) -> bool:
+        return self.op is None and not self.waiting and not self.active
+
+    # ---- op lifecycle ------------------------------------------------------
+    def start_op(self, skip: Optional[Callable] = None,
+                 ready: Optional[Callable] = None) -> Optional[float]:
+        """Begin the next op; -> base duration in seconds, or None if
+        there is nothing to do.  ``skip(key) -> bool`` drops waiting
+        entries (hedge-cancelled twins) without admitting them;
+        ``ready(key) -> bool`` holds back entries that have not arrived
+        yet at the op's start instant (wall-clock replay) — a not-ready
+        FIFO head falls through to a decode op, like the real engine
+        seeing an empty queue."""
+        if self.op is not None:       # survives python -O, unlike assert
+            raise RuntimeError("previous op not finished")
+        while self.waiting and len(self.active) < self.max_batch:
+            item = self.waiting[0]
+            if skip is not None and skip(item.key):
+                self.waiting.popleft()
+                continue
+            if ready is not None and not ready(item.key):
+                break
+            self.waiting.popleft()
+            self.op = ("prefill", item)
+            return self.service.prefill_time(item.prompt_tokens)
+        if self.active:
+            self.op = ("decode", None)
+            return self.service.step_time(len(self.active))
+        return None
+
+    def finish_op(self) -> list:
+        """Apply the current op; -> keys of requests it completed."""
+        kind, item = self.op
+        self.op = None
+        done = []
+        if kind == "prefill":
+            self.tokens_done += 1
+            item.remaining -= 1
+            if item.remaining <= 0:
+                done.append(item.key)
+            else:
+                self.active.append(item)
+        else:
+            self.tokens_done += len(self.active)
+            still = []
+            for it in self.active:
+                it.remaining -= 1
+                if it.remaining <= 0:
+                    done.append(it.key)
+                else:
+                    still.append(it)
+            self.active = still
+        return done
+
+    def abort(self) -> list:
+        """Drop every resident request (server failure); -> their keys.
+        Waiting entries are the caller's to account for."""
+        keys = [it.key for it in self.active]
+        if self.op is not None and self.op[0] == "prefill":
+            keys.append(self.op[1].key)
+        self.active = []
+        self.op = None
+        return keys

@@ -1,11 +1,14 @@
-"""Runtime layer: a compiled scenario on the vector grid runtime or on
-real engines.
+"""Runtime layer: a compiled scenario on the vector grid runtime, the
+event simulator or real engines.
 
 Trimmed copy of ``repro.core.runtime``:
 
 * ``run_scenario`` runs a ``Scenario`` on the vector runtime (on the
-  card unless ``vector_config`` asks for the CPU) or, with
-  ``backend="engine"``, on the engines it is given;
+  card unless ``vector_config`` asks for the CPU), with
+  ``backend="sim"`` on the virtual-time event simulator (host NumPy,
+  bit-identical to the reference's), or with ``backend="engine"`` on
+  the engines it is given;
+* ``SimulatorRuntime`` is the thin adapter over ``build_simulator``;
 * ``EngineRuntime`` is the wall-clock loop that drives step-based
   engines (``repro_torch.serving.engine``: the real ``InferenceEngine``
   on the card, or ``StubEngine``) with the reference's
@@ -14,11 +17,11 @@ Trimmed copy of ``repro.core.runtime``:
   ``MetricsPipeline`` telemetry;
 * ``VirtualClock`` lets that loop run in accelerated virtual time.
 
-Not ported yet: the virtual-time simulator (``backend="sim"``), and the
-resilience and control features of ``repro.control`` (retries,
-breakers, admission control, the control loop, and the ``set_retry``,
+Not ported yet: the resilience and control features of
+``repro_torch.control`` on ``EngineRuntime`` (retries, breakers,
+admission control, the control loop, and the ``set_retry``,
 ``set_breaker``, ``set_admission`` and ``set_scale`` injections), which
-raise ``NotImplementedError``.
+raise ``NotImplementedError`` there.  The simulator runs them all.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ import numpy as np
 
 from repro_torch.core.balancer import POLICIES
 from repro_torch.core.client import ClientConfig, ClientGenerator
+from repro_torch.core.harness import Experiment, build_simulator
 from repro_torch.core.profiles import FixedProfile
 from repro_torch.core.request import Request
 from repro_torch.core.stats import LatencyRecorder, MetricsPipeline
@@ -40,8 +44,43 @@ from repro_torch.core.stats import LatencyRecorder, MetricsPipeline
 # reported as unsupported, as the reference does
 _ENGINE_INJECTIONS = ("server_join", "server_drain", "server_fail",
                       "set_policy")
-# injection kinds of repro.control that the port does not carry yet
+# injection kinds of repro_torch.control that EngineRuntime does not
+# carry yet (the simulator does)
 _NOT_PORTED = ("set_admission", "set_scale", "set_retry", "set_breaker")
+
+
+class SimulatorRuntime:
+    """Virtual-time backend — thin adapter over ``build_simulator``.
+    Runs on the host: it makes no device claim and never touches torch."""
+
+    def __init__(self, experiment: Experiment, rep: int = 0):
+        self.sim = build_simulator(experiment, rep=rep)
+        self.recorder = self.sim.recorder
+        self.telemetry = self.sim.telemetry
+
+    @property
+    def dropped(self) -> int:
+        return self.sim.dropped
+
+    @property
+    def shed(self) -> int:
+        return self.sim.shed
+
+    @property
+    def timeouts(self) -> int:
+        return self.sim.timeouts
+
+    @property
+    def retries(self) -> int:
+        return self.sim.retries
+
+    @property
+    def control_log(self) -> list:
+        return self.sim.control_log
+
+    def run(self) -> MetricsPipeline:
+        self.sim.run()
+        return self.telemetry
 
 
 # ---------------------------------------------------------------------------
@@ -504,15 +543,14 @@ def run_scenario(scenario, backend: str = "vector", *, rep: int = 0,
                  vector_config=None, engines=None, engine_factory=None,
                  **engine_kw):
     """Compile ``scenario`` and execute repetition ``rep`` on ``backend``:
-    ``"vector"`` (the grid runtime; ``vector_config`` picks the device)
-    or ``"engine"`` (wall clock, on the supplied ``engines``).  Returns
-    the finished runtime (telemetry under ``.telemetry``)."""
-    if backend == "sim":
-        raise NotImplementedError(
-            f"backend {backend!r} is not ported yet (use 'vector' or "
-            f"'engine')")
+    ``"vector"`` (the grid runtime; ``vector_config`` picks the device,
+    the card by default), ``"sim"`` (the event simulator, on the host) or
+    ``"engine"`` (wall clock, on the supplied ``engines``).  Returns the
+    finished runtime (telemetry under ``.telemetry``)."""
     exp = scenario.compile()
-    if backend == "vector":
+    if backend == "sim":
+        rt = SimulatorRuntime(exp, rep=rep)
+    elif backend == "vector":
         from repro_torch.vector import VectorRuntime
         rt = VectorRuntime(exp, rep=rep, config=vector_config)
     elif backend == "engine":

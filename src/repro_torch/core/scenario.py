@@ -9,7 +9,8 @@ configs with start/end times and QPS schedules, server specs with
 ``join_at``/``drain_at``, plus a list of ``Injection`` records for the
 behaviors those primitives cannot express (failure, slowdown,
 policy/hedge swaps).  Copy of ``repro.core.scenario``; the compiled
-experiment runs on ``repro_torch.vector``.
+experiment runs on the vector runtime, the simulator or engines (see
+``repro_torch.core.runtime.run_scenario``).
 """
 from __future__ import annotations
 
@@ -189,6 +190,7 @@ class Scenario:
     interval: float = 1.0
     slo: Optional[float] = None
     hedge_delay: Optional[float] = None
+    stats_mode: str = "exact"
     # pluggable service layer: a BatchedService switches every server to
     # the continuous-batching serve loop; lengths gives every client a
     # per-request token-size distribution (identical on both backends)
@@ -309,7 +311,7 @@ class Scenario:
             servers=tuple(servers.values()),
             app=self.app, policy=self.policy, duration=self.duration,
             interval=self.interval, seed=self.seed,
-            hedge_delay=self.hedge_delay,
+            hedge_delay=self.hedge_delay, stats_mode=self.stats_mode,
             slo=self.slo, injections=tuple(injections),
             service_model=self.service_model, lengths=self.lengths,
             retry=self.retry, breaker=self.breaker, control=self.control)

@@ -1,18 +1,19 @@
 """Named scenario registry of the port.
 
-The seven canonical dynamic scenarios register themselves here;
-``get()`` builds one by name with optional overrides.
+The seven canonical dynamic scenarios (``canonical``) and the four chaos
+scenarios (``chaos``: retry-storm, correlated-failure, gray-failure,
+flash-crowd-autoscale) register themselves here; ``get()`` builds one by
+name with optional overrides.
 
     from repro_torch.scenarios import get, names
     sc = get("flash-crowd", duration=30.0, seed=3)
 
-Run any of them on the card from the command line:
+Run any of them on the card, or on the host's event simulator, from
+the command line:
 
     PYTHONPATH=src python -m repro_torch.scenarios --list
     PYTHONPATH=src python -m repro_torch.scenarios server-failure --backend vector
-
-The chaos scenarios of ``repro.scenarios.chaos`` need the control plane
-and are not ported yet.
+    PYTHONPATH=src python -m repro_torch.scenarios retry-storm --backend sim
 """
 from __future__ import annotations
 
@@ -46,3 +47,4 @@ def get(name: str, **overrides) -> Scenario:
 
 
 from repro_torch.scenarios import canonical as _canonical  # noqa: E402,F401  (registers)
+from repro_torch.scenarios import chaos as _chaos  # noqa: E402,F401  (registers)

@@ -1,20 +1,26 @@
-"""One CLI for every canonical scenario, on the vector runtime or on
-engines.
+"""One CLI for every canonical and chaos scenario, on the vector
+runtime, the event simulator or engines.
 
     PYTHONPATH=src python -m repro_torch.scenarios --list
     PYTHONPATH=src python -m repro_torch.scenarios server-failure --backend vector
     PYTHONPATH=src python -m repro_torch.scenarios steady --device cpu --duration 3
+    PYTHONPATH=src python -m repro_torch.scenarios flash-crowd-autoscale --device cpu
+    PYTHONPATH=src python -m repro_torch.scenarios retry-storm --backend sim
     PYTHONPATH=src python -m repro_torch.scenarios server-failure --backend engine --stub
     PYTHONPATH=src python -m repro_torch.scenarios steady --backend engine \
         --arch phi3-mini-3.8b --duration 5
 
 ``--backend vector`` (default) runs the batched grid runtime;
-``--backend engine`` drives the wall-clock runtime against
-profile-timed ``StubEngine`` replicas in accelerated virtual time
-(``--stub``, the default without ``--arch``) or against real
-``InferenceEngine`` replicas of a model (``--arch``).  The runs go to
-the CUDA card; ``--device cpu`` runs the kernels' plain PyTorch
-versions on the CPU instead.  The ``sim`` backend is not ported yet.
+``--backend sim`` runs the virtual-time event simulator on the host
+(exact: retries, timeouts, breakers and the control loop per request;
+it never touches the card); ``--backend engine`` drives the wall-clock
+runtime against profile-timed ``StubEngine`` replicas in accelerated
+virtual time (``--stub``, the default without ``--arch``) or against
+real ``InferenceEngine`` replicas of a model (``--arch``).  The vector
+and model runs go to the CUDA card; ``--device cpu`` runs the kernels'
+plain PyTorch versions on the CPU instead.  The report's first line
+names the backend and where it ran (``device=host`` for ``sim`` and
+the stub engines).
 """
 from __future__ import annotations
 
@@ -25,12 +31,12 @@ from repro_torch import scenarios
 from repro_torch.core.runtime import EngineRuntime, VirtualClock, run_scenario
 
 
-def _print_report(rt, scenario, backend: str) -> None:
+def _print_report(rt, scenario, backend: str, device: str) -> None:
     s = rt.telemetry.overall()
     print(f"scenario={scenario.name} backend={backend} "
           f"n={s.n} dropped={rt.dropped} mean={s.mean*1e3:.2f}ms "
           f"p50={s.p50*1e3:.2f}ms p95={s.p95*1e3:.2f}ms "
-          f"p99={s.p99*1e3:.2f}ms")
+          f"p99={s.p99*1e3:.2f}ms device={device}")
     res = {m: int(getattr(rt, m, 0) or 0)
            for m in ("shed", "timeouts", "retries")}
     if any(res.values()):
@@ -71,7 +77,8 @@ def main(argv=None) -> int:
                     choices=["sim", "engine", "vector"])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the vector runtime or the model runs "
-                         "(cpu = the kernels' plain PyTorch versions)")
+                         "(cpu = the kernels' plain PyTorch versions); "
+                         "the sim backend always runs on the host")
     ap.add_argument("--duration", type=float, default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--app", default=None)
@@ -94,15 +101,13 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     if args.list or not args.name:
-        print("canonical scenarios:")
+        print("canonical and chaos scenarios:")
         for n in scenarios.names():
             builder = scenarios.SCENARIOS[n]
             doc = (builder.__doc__ or "").strip().splitlines()[0]
-            print(f"  {n:<18} {doc}")
+            print(f"  {n:<21} {doc}")
         return 0
 
-    if args.backend == "sim":
-        ap.error("--backend sim is not ported yet (use vector or engine)")
     # overrides go to the scenario *builder* so event times scale with them
     overrides = {k: v for k, v in (("duration", args.duration),
                                    ("app", args.app),
@@ -110,7 +115,13 @@ def main(argv=None) -> int:
                                    ("slo", args.slo)) if v is not None}
     sc = scenarios.get(args.name, seed=args.seed, **overrides)
 
-    if args.backend == "vector":
+    # the simulator and the stub engines run on the host
+    on_host = args.backend == "sim" or (args.backend == "engine"
+                                        and not args.arch)
+    device = "host" if on_host else args.device
+    if args.backend == "sim":
+        rt = run_scenario(sc, "sim")
+    elif args.backend == "vector":
         from repro_torch.vector import VectorConfig
         rt = run_scenario(sc, args.backend,
                           vector_config=VectorConfig(device=args.device))
@@ -137,7 +148,7 @@ def main(argv=None) -> int:
             exp, engines, engine_factory=factory, clock=clock,
             sleep=clock.sleep)
         rt.run()
-    _print_report(rt, sc, args.backend)
+    _print_report(rt, sc, args.backend, device)
     if args.csv:
         _write_csv(rt, args.csv)
     return 0

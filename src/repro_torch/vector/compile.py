@@ -21,8 +21,9 @@ fast lane rather than a bit-identical replay):
   ``unsupported`` (the scenario CLI prints the skip) instead of being
   silently dropped.
 
-Copy of ``repro.vector.compile``.  The closed-loop control pre-pass is
-not ported yet: an experiment with ``control`` raises.
+Copy of ``repro.vector.compile``, the closed-loop control pre-pass
+(``_control_prepass``) included; ``program_from_numpy`` carries a
+program compiled elsewhere (the JAX package's) into this runtime.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from typing import Optional
 
 import numpy as np
 
+from repro_torch.control import BreakerSpec, ControlSpec, RetryPolicy
 from repro_torch.core.harness import Experiment
 from repro_torch.core.profiles import (BatchedService, FixedProfile,
                                        LogNormalProfile, TokenLengths)
@@ -88,6 +90,9 @@ class VectorProgram:
     # the shed-rate timeline it implies.  None = fully open throughout.
     admit: Optional[np.ndarray] = None  # [T] admitted fraction
     shed_rate: Optional[np.ndarray] = None   # [T] shed QPS
+    # actions the control pre-pass emitted: (t_applied, kind, params),
+    # same shape as the event backends' ``control_log``
+    control_actions: list = field(default_factory=list)
     unsupported: list = field(default_factory=list)
 
     @property
@@ -135,8 +140,9 @@ class _ReplayPolicy:
 
 
 def compile_experiment(exp: Experiment, dt: float = 0.005) -> VectorProgram:
-    if exp.control is not None:
-        raise VectorCompileError("control not ported yet")
+    if exp.legacy_mode:
+        raise VectorCompileError("vector backend does not support "
+                                 "legacy_mode (use the event engine)")
     n_slots = max(1, int(math.ceil(exp.duration / dt)))
     centers = (np.arange(n_slots) + 0.5) * dt
 
@@ -226,6 +232,32 @@ def compile_experiment(exp: Experiment, dt: float = 0.005) -> VectorProgram:
             masked = np.where(centers < end, masked, 0.0)
         rates[i] = masked
         ends[i] = end
+
+    # ---- closed-loop control: fluid pre-pass -------------------------------
+    # Replays the controller against the fluid backlog model (offered
+    # rate vs capacity), emitting the same set_admission/set_scale
+    # actions the event backends would apply — lag and cooldown
+    # included.  Latency percentiles have no cheap fluid analogue, so
+    # the observation's p99/slo_frac are NaN; the shipped policies act
+    # on utilization and queue depth, which the model does carry.
+    control_actions: list = []
+    if exp.control is not None:
+        if getattr(exp.resolved_service(), "kind", "scalar") == "batched":
+            unsupported.append(Injection(0.0, "control",
+                                         {"spec": exp.control}))
+        else:
+            m0 = exp.resolved_profile().moments()[0]
+            w_mean = m0 * np.exp(noise_sigma ** 2 / 2.0)
+            adm_c, scale_c = _control_prepass(
+                exp.control, rates.sum(axis=0), active, accepting, speed,
+                workers, w_mean, specs, server_ids, fail_slot, drain_slots,
+                admission_changes, scale_changes, dt, n_slots)
+            admission_changes = admission_changes + adm_c
+            scale_changes = scale_changes + scale_c
+            control_actions = sorted(
+                [(t, "set_admission", dict(p)) for t, _, p in adm_c]
+                + [(t, "set_scale", {"n": n}) for t, _, n in scale_c],
+                key=lambda a: a[0])
 
     # ---- scale timeline ----------------------------------------------------
     # apply chronologically so a scale-out cannot clobber a later drain
@@ -420,7 +452,7 @@ def compile_experiment(exp: Experiment, dt: float = 0.005) -> VectorProgram:
         work_mean=np.ones(S), work_var=np.zeros(S),
         noise_sigma=noise_sigma, refused_clients=refused,
         admit=admit_arr, shed_rate=shed_rate,
-        unsupported=unsupported)
+        control_actions=control_actions, unsupported=unsupported)
     if batched:
         lengths = exp.resolved_lengths() or TokenLengths()
         (pm, pv), (nm, nv) = lengths.moments()
@@ -477,6 +509,107 @@ def _apply_scale_action(active: np.ndarray, accepting: np.ndarray, k: int,
             accepting[kd:, j] = 0.0
 
 
+def _control_prepass(spec, offered: np.ndarray, active: np.ndarray,
+                     accepting: np.ndarray, speed: np.ndarray,
+                     workers: np.ndarray, w_mean: np.ndarray, specs,
+                     server_ids, fail_slot: np.ndarray, drain_slots,
+                     inj_admissions, inj_scales, dt: float,
+                     n_slots: int) -> tuple[list, list]:
+    """Replay the controller against the fluid backlog model.
+
+    Steps the total offered rate against fleet capacity slot by slot,
+    maintaining a global backlog ``U`` (work-seconds); at each control
+    interval it builds an ``Observation`` (util, queue depth, served
+    count — p99/slo_frac are NaN in the fluid world) and lets the policy
+    act, honoring cooldown and actuation lag.  Injected admission/scale
+    timelines are applied inside the stepping so the controller sees
+    their effects.  Returns the controller-emitted ``(t, seq, params)``
+    admission changes and ``(t, seq, n)`` scale changes; control seqs
+    start at 10**6, ordering them after compiled injections at identical
+    timestamps (the event backends schedule lagged actions the same way).
+    """
+    import heapq as _heapq
+    import itertools as _it
+
+    from repro_torch.control import ControlLoop
+    from repro_torch.control.policy import Observation
+
+    loop = ControlLoop(spec)
+    act2 = active.copy()
+    acc2 = accepting.copy()
+    ctrl_seq = _it.count(10 ** 6)
+    pending: list = []                 # (slot, seq, kind, payload)
+    for at, seq, p in inj_admissions:
+        _heapq.heappush(pending, (min(int(at / dt), n_slots), seq,
+                                  "set_admission", dict(p)))
+    for at, seq, n in inj_scales:
+        _heapq.heappush(pending, (min(int(at / dt), n_slots), seq,
+                                  "set_scale", (n, at)))
+    out_adm: list = []
+    out_scale: list = []
+    admit_p: Optional[float] = None    # probabilistic admit fraction
+    rate_cap: Optional[float] = None   # token-bucket rate cap
+    fleet_w = float(w_mean.mean()) if len(w_mean) else 1.0
+    U = 0.0                            # backlog, work-seconds
+    served_win = 0.0                   # served requests since last tick
+    next_tick = spec.interval
+    cap_w = workers * speed / np.maximum(w_mean, 1e-12)   # [T, S] req/s
+    for k in range(n_slots):
+        while pending and pending[0][0] <= k:
+            _, _, kind, payload = _heapq.heappop(pending)
+            if kind == "set_admission":
+                a, r = payload.get("admit"), payload.get("rate")
+                if r is not None:
+                    admit_p, rate_cap = None, float(r)
+                elif a is None or a >= 1.0:
+                    admit_p, rate_cap = None, None
+                else:
+                    admit_p, rate_cap = max(float(a), 0.0), None
+            else:
+                n, at = payload
+                _apply_scale_action(act2, acc2, k, n, specs, server_ids,
+                                    fail_slot, drain_slots, at)
+        off = float(offered[k])
+        if rate_cap is not None:
+            f = min(1.0, rate_cap / off) if off > 0.0 else 1.0
+        elif admit_p is not None:
+            f = admit_p
+        else:
+            f = 1.0
+        lam = off * f
+        cap = float((acc2[k] * cap_w[k]).sum())
+        serve = min(cap, lam + U / dt)
+        U = max(U + (lam - serve) * dt, 0.0)
+        served_win += serve * dt
+        t_end = (k + 1) * dt
+        while next_tick <= t_end + 1e-12:
+            nact = int(np.count_nonzero(acc2[min(k, n_slots - 1)]))
+            util = 1.0 if U > 1e-9 else (min(lam / cap, 1.0)
+                                         if cap > 0.0 else 1.0)
+            obs = Observation(t=next_tick, n=int(round(served_win)),
+                              qps=served_win / spec.interval,
+                              p99=float("nan"), mean=float("nan"),
+                              util=util, qdepth=U / max(fleet_w, 1e-12),
+                              slo_frac=float("nan"), n_active=max(nact, 1),
+                              admit=f)
+            served_win = 0.0
+            for kind, params in loop.tick(obs, next_tick):
+                due = next_tick + spec.lag
+                seq = next(ctrl_seq)
+                k_due = min(int(due / dt), n_slots)
+                if kind == "set_admission":
+                    out_adm.append((due, seq, dict(params)))
+                    _heapq.heappush(pending, (k_due, seq, "set_admission",
+                                              dict(params)))
+                elif kind == "set_scale":
+                    n = int(params["n"])
+                    out_scale.append((due, seq, n))
+                    _heapq.heappush(pending, (k_due, seq, "set_scale",
+                                              (n, due)))
+            next_tick += spec.interval
+    return out_adm, out_scale
+
+
 def _budget_stop(rate: np.ndarray, dt: float, budget: int) -> float:
     """Absolute stop time of a budgeted client (expected-count crossing)."""
     cum = np.cumsum(rate) * dt
@@ -505,13 +638,35 @@ def _profile_from_fields(d: Optional[dict]):
     return LogNormalProfile(**d)
 
 
+#: injection kind -> (params key, dataclass) of the specs an
+#: ``unsupported`` record carries
+_SPEC_PARAMS = {"set_retry": ("policy", RetryPolicy),
+                "set_breaker": ("spec", BreakerSpec),
+                "control": ("spec", ControlSpec)}
+
+
+def _injection_from_fields(d: dict) -> Injection:
+    d = dict(d)
+    params = dict(d["params"])
+    key, cls = _SPEC_PARAMS.get(d["kind"], (None, None))
+    if isinstance(params.get(key), dict):
+        spec = dict(params[key])
+        if cls is ControlSpec:
+            spec["params"] = tuple(tuple(p) for p in spec["params"])
+        params[key] = cls(**spec)
+    d["params"] = params
+    return Injection(**d)
+
+
 def program_from_numpy(fields: dict) -> VectorProgram:
     """Build a ``VectorProgram`` from another program's fields given as
     plain numbers, lists and NumPy arrays: ``profile``, ``service`` and
     ``lengths`` as dicts of their dataclass fields, ``unsupported`` as
-    dicts of ``Injection`` fields.  This carries a program compiled
-    elsewhere (for example by the JAX package) into this runtime.
-    Fields this program does not have must be empty."""
+    dicts of ``Injection`` fields (a ``RetryPolicy``, ``BreakerSpec`` or
+    ``ControlSpec`` in their params as a dict of its fields),
+    ``control_actions`` as ``(t, kind, params)`` tuples.  This carries a
+    program compiled elsewhere (for example by the JAX package) into
+    this runtime.  Fields this program does not have must be empty."""
     names = {f.name for f in dataclasses.fields(VectorProgram)}
     extra = {k: v for k, v in fields.items() if k not in names}
     if any(v for v in extra.values()):
@@ -525,6 +680,9 @@ def program_from_numpy(fields: dict) -> VectorProgram:
                                           if k != "kind"})
     if kw.get("lengths") is not None:
         kw["lengths"] = TokenLengths(**kw["lengths"])
-    kw["unsupported"] = [Injection(**d) for d in kw.get("unsupported", ())]
+    kw["unsupported"] = [_injection_from_fields(d)
+                         for d in kw.get("unsupported", ())]
+    kw["control_actions"] = [(t, kind, dict(params)) for t, kind, params
+                             in kw.get("control_actions", ())]
     kw["server_ids"] = list(kw["server_ids"])
     return VectorProgram(**kw)

@@ -655,6 +655,10 @@ class VectorRuntime:
             return 0
         return int(round(float(r.shed_ivl.sum())))
 
+    @property
+    def control_log(self) -> list:
+        return self.program.control_actions
+
     def run(self):
         from repro_torch.vector.telemetry import VectorTelemetry
         self.result = run_cells([self.program], [self.seed],

@@ -141,6 +141,38 @@ def test_scan_kernel_bit_equal_to_plain(cuda, family, S, C, T):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("name,kw", [
+    ("flash-crowd-autoscale", {}),
+    ("flash-crowd-autoscale", dict(controller="admission_shedder",
+                                   peak_qps=4000.0)),
+    ("correlated-failure", {})])
+def test_scan_kernel_bit_equal_on_chaos_grid(cuda, name, kw):
+    """A chaos grid's scan launch as ``run_cells`` builds it, at full
+    duration: standby columns (``active = 0``) until the control
+    pre-pass's ``set_scale`` opens one, admission-thinned arrivals, two
+    servers failing in one slot and their replacements joining."""
+    from repro_torch import scenarios
+    from repro_torch.vector import compile_experiment
+    from repro_torch.vector import runtime as R
+    progs, seeds = [], []
+    for rep in range(3):
+        sc = scenarios.get(name, seed=10 + rep, **kw)
+        progs.append(compile_experiment(sc.compile()))
+        seeds.append((sc.seed, rep))
+    (batched, shape, idxs), = R._plan_groups(progs)
+    draws = [R._draw_cell(progs[i], R._cell_rng(*seeds[i])) for i in idxs]
+    consts, carry, xs = R.scan_inputs([progs[i] for i in idxs], draws,
+                                      batched, shape, cuda)
+    active = xs[-3]
+    assert not batched and (active == 0).any() and (active == 1).any()
+    kc, ky = vector_step.scalar_scan(consts, carry, xs)
+    pc, py = ref.scalar_scan(consts, carry, xs)
+    torch.cuda.synchronize()
+    for k, p in zip(list(kc) + list(ky), list(pc) + list(py)):
+        assert torch.equal(k, p)
+
+
+@pytest.mark.gpu
 def test_scan_fast_divide_is_the_ieee_divide(cuda):
     """The scans' branch-free divide (``FastDiv``) is the IEEE quotient
     wherever it does not flag its operands, and it flags exactly the pairs

@@ -12,9 +12,11 @@
   interval series rtol 1e-6) leave room only for XLA's jitted
   FMA contraction in the reference scan; no scenario needs more.
 * Carrying a program across: ``program_from_numpy`` rebuilds the port's
-  program from the reference program's fields.
+  program from the reference program's fields, ``control_actions`` and
+  the retry, breaker and control specs of ``unsupported`` included.
 * The package: imports neither JAX nor ``repro``, runs on the card by
-  default and raises where there is none, and its CLI runs on the CPU.
+  default and raises where there is none, and its CLI runs on the CPU
+  (and ``--backend sim`` on the host).
 """
 from __future__ import annotations
 
@@ -73,10 +75,8 @@ def _reference_fields(prog) -> dict:
 def _assert_programs_equal(port, ref):
     want = _reference_fields(ref)
     got = _reference_fields(port)
+    assert got.keys() == want.keys()
     for name, value in want.items():
-        if name not in got:                # control_actions: not ported
-            assert not value, name
-            continue
         if isinstance(value, np.ndarray):
             np.testing.assert_array_equal(got[name], value, err_msg=name)
             assert got[name].dtype == value.dtype, name
@@ -186,12 +186,68 @@ def test_program_from_numpy_carries_reference_program(name):
         (b.n, b.mean, b.p50, b.p95, b.p99, b.dropped)
 
 
+@pytest.mark.parametrize("name,kw", [
+    ("flash-crowd-autoscale", {}),
+    ("flash-crowd-autoscale", dict(controller="admission_shedder",
+                                   peak_qps=4000.0)),
+    ("retry-storm", {}),
+    ("gray-failure", dict(breaker=True))])
+def test_program_from_numpy_carries_control_actions(name, kw):
+    """A reference program with ``control_actions`` and with retry and
+    breaker specs in ``unsupported`` is carried across field for field,
+    the specs rebuilt as the port's own dataclasses, and runs as the
+    port's own program does."""
+    from repro_torch.control import BreakerSpec, RetryPolicy
+    port, ref = _programs(name, duration=9.0, seed=3, **kw)
+    carried = program_from_numpy(_reference_fields(ref))
+    _assert_programs_equal(carried, ref)
+    assert carried.control_actions == ref.control_actions
+    assert (len(carried.control_actions) > 0) == (name ==
+                                                  "flash-crowd-autoscale")
+    for inj in carried.unsupported:
+        spec = next(iter(inj.params.values()))
+        assert isinstance(spec, {"set_retry": RetryPolicy,
+                                 "set_breaker": BreakerSpec}[inj.kind])
+    assert [(i.at, i.kind, i.params, i.seq) for i in carried.unsupported] \
+        == [(i.at, i.kind, i.params, i.seq) for i in port.unsupported]
+    a = run_cells([carried], [(3, 0)], CPU)[0]
+    b = run_cells([port], [(3, 0)], CPU)[0]
+    assert (a.n, a.mean, a.p50, a.p95, a.p99, a.dropped) == \
+        (b.n, b.mean, b.p50, b.p95, b.p99, b.dropped)
+
+
 def test_program_from_numpy_refuses_control_actions():
+    """``control_actions`` came across once the pre-pass was ported; what
+    is still refused is a non-empty field the port's program lacks."""
     _, ref = _programs("steady", duration=2.0)
     fields = _reference_fields(ref)
     fields["control_actions"] = [(1.0, "set_scale", {"n": 2})]
+    assert program_from_numpy(fields).control_actions == \
+        [(1.0, "set_scale", {"n": 2})]
+    fields["soft_band"] = [0.5]
     with pytest.raises(VectorCompileError, match="not ported"):
         program_from_numpy(fields)
+    fields["soft_band"] = []
+    assert program_from_numpy(fields).n_servers == ref.n_servers
+
+
+def test_program_from_numpy_carries_control_spec():
+    """A batched service under ``control`` records the spec as
+    ``unsupported``; it comes across as the port's ``ControlSpec``."""
+    from repro_torch.control import ControlSpec
+    port, ref = _programs("batched-serving", duration=2.0, seed=1)
+    spec = dict(name="admission_shedder", interval=1.0, lag=2.0,
+                cooldown=4.0, params=(("target_qdepth", 8.0),))
+    fields = _reference_fields(ref)
+    fields["unsupported"] = fields["unsupported"] + [
+        dict(at=0.0, kind="control", params={"spec": spec}, seq=0)]
+    carried = program_from_numpy(fields)
+    got = carried.unsupported[-1].params["spec"]
+    assert got == ControlSpec.make("admission_shedder", interval=1.0,
+                                   lag=2.0, cooldown=4.0,
+                                   target_qdepth=8.0)
+    assert hash(got) == hash(ControlSpec(**dict(
+        spec, params=(("target_qdepth", 8.0),))))
 
 
 def test_imports_neither_jax_nor_repro():
@@ -225,14 +281,44 @@ def test_cuda_is_the_default_and_never_falls_back(monkeypatch):
 
 
 def test_not_ported_surfaces_raise():
-    sc = tsc.get("steady", duration=1.0)
+    """What is still not ported raises: control on the engine runtime,
+    ``batched-serving`` with ``arch=``, and soft mode."""
+    from repro_torch.core.runtime import EngineRuntime
+    from repro_torch.kernels import ops
+    sc = tsc.get("flash-crowd-autoscale", duration=3.0)
     with pytest.raises(NotImplementedError, match="not ported"):
-        run_scenario(sc, "sim")
+        EngineRuntime.from_experiment(sc.compile(), [object()] * 6)
     with pytest.raises(NotImplementedError, match="not ported"):
         tsc.get("batched-serving", arch="phi3-mini-3.8b")
-    exp = dataclasses.replace(sc.compile(), control=object())
-    with pytest.raises(VectorCompileError, match="control not ported"):
-        compile_experiment(exp)
+    with pytest.raises(NotImplementedError, match="soft mode"):
+        ops.scalar_scan({"tau": 0.1}, (), ())
+    # the simulator and the compiler's control pre-pass no longer raise
+    assert run_scenario(tsc.get("steady", duration=1.0), "sim").recorder.all
+    assert compile_experiment(sc.compile()).control_actions is not None
+
+
+@pytest.mark.parametrize("args,head", [
+    (["retry-storm", "--backend", "sim", "--duration", "6"],
+     "scenario=retry-storm backend=sim n="),
+    (["flash-crowd-autoscale", "--device", "cpu", "--duration", "9"],
+     "scenario=flash-crowd-autoscale backend=vector n=")])
+def test_cli_runs_sim_and_chaos_on_cpu(args, head):
+    """``--backend sim`` runs on the host and says so; a chaos scenario
+    with a controller runs on the CPU's vector runtime, nothing
+    skipped."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-m", "repro_torch.scenarios",
+                          *args], env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0].startswith(head)
+    if "sim" in args:
+        assert lines[0].endswith(" device=host")
+        assert lines[1].startswith("  resilience: shed=0 timeouts=")
+    else:
+        assert lines[0].endswith(" device=cpu")
+        assert not any("note: injection" in ln for ln in lines)
 
 
 def test_cli_runs_on_cpu():
