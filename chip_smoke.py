@@ -30,6 +30,15 @@ pre-pass shapes) and real-model serving of a dense attention model
    the host's event simulator (``sim``) against the card's vector
    runtime within the reference's bounds (``SIM_N_REL``,
    ``SIM_SCALE_S``);
+4c. runs the sweep layer (``repro_torch.sweep.run_sweep``) on the card:
+   the fig1 grid of ``benchmarks/torch_port/bench_vector.py`` (117 cells)
+   and the flash crowd's 2 points x 13 reps, each in one ``scalar_scan``
+   and one ``fused_quantiles`` launch with rows equal, bit for bit, to
+   ``run_cells`` on the programs and seeds of the same declaration; then
+   a ``steady`` sweep with a ``runtime`` axis over ``sim|vector`` under
+   the process executor, started after the card is initialised (its
+   workers come from a forkserver), whose frame must equal the serial
+   one and whose vector rows must equal the CPU's;
 5. runs phi3-mini-3.8b at full width and a depth of 2 layers on the CPU
    (plain versions) and on the card (kernels), from the same seeded
    weights: a 128-token prompt and 8 greedy tokens, equal tokens and
@@ -168,17 +177,11 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def spawn_seed(base_seed: int, point: int, rep: int) -> int:
-    """Per-(point, rep) seed, as ``repro.sweep.spec.spawn_seed`` derives
-    it (SeedSequence spawn tree)."""
-    ss = np.random.SeedSequence(base_seed, spawn_key=(point, rep))
-    return int(ss.generate_state(1, np.uint32)[0])
-
-
 def scenario_grid(name, points, **kw) -> tuple:
     """(name, programs, seeds): each point of a registered scenario x 13
     reps, every cell with its own sweep-derived seed."""
     from repro_torch.scenarios import get
+    from repro_torch.sweep import spawn_seed
     from repro_torch.vector import compile_experiment
     progs, seeds = [], []
     for i, over in enumerate(points):
@@ -193,6 +196,7 @@ def build_grids() -> list:
     """(name, programs, seeds) of the four main-path grids."""
     from repro_torch.core.client import ClientConfig, ConstantQPS
     from repro_torch.core.harness import Experiment, ServerSpec
+    from repro_torch.sweep import spawn_seed
     from repro_torch.vector import compile_experiment
 
     grids = []
@@ -235,6 +239,12 @@ CHAOS_GRIDS = [("flash-crowd-autoscale",
 #: (tests/test_control.py: served mass, rel; the first scale-out, s)
 SIM_N_REL = 0.05
 SIM_SCALE_S = 2.0
+#: the sweep phase's mixed frame: ``steady`` at these offered loads, 6 s,
+#: 3 reps, a ``runtime`` axis over ``sim|vector``, 2 process workers
+MIXED_QPS = (400.0, 1200.0)
+#: the row metrics the sweep phase holds against ``run_cells``'s results
+#: (where a sweep reads them: ``build_grid``'s fig1 reads no ``dropped``)
+SWEEP_METRICS = ("n", "mean", "p50", "p95", "p99", "dropped")
 
 
 def build_chaos_grids() -> list:
@@ -887,6 +897,7 @@ def rows_close(gpu, cpu) -> str:
 def chaos_experiment(name: str, i: int):
     """The compiled scenario of cell ``i`` of a chaos grid."""
     from repro_torch.scenarios import get
+    from repro_torch.sweep import spawn_seed
     points = dict(CHAOS_GRIDS)[name]
     point, rep = divmod(i, 13)
     return get(name, seed=spawn_seed(1, point, rep),
@@ -950,6 +961,122 @@ def check_chaos_sim() -> dict:
     return {"sim_control_log": sim.control_log,
             "vector_control_log": vec.control_log, "sim_n": n_sim,
             "vector_n": n_vec, "sim_wall_s": sim_wall}
+
+
+def sweep_rows_equal(name, frame, cells) -> None:
+    """Every row of a vector sweep equals, metric by metric and bit for
+    bit, the ``run_cells`` result of its cell."""
+    if len(frame.rows) != len(cells):
+        fail(f"sweep {name}: {len(frame.rows)} rows for {len(cells)} cells")
+    for k, (row, res) in enumerate(zip(frame.rows, cells)):
+        want = {m: getattr(res, m) for m in SWEEP_METRICS}
+        got = {m: row.metrics[m] for m in SWEEP_METRICS if m in row.metrics}
+        if any(got[m] != want[m] or type(got[m]) not in (int, float)
+               for m in got):
+            fail(f"sweep {name} row {k}: {got} != run_cells {want}")
+
+
+def run_sweep_phase(results, vector_kernels) -> tuple:
+    """The sweep layer on the card (step 4c); -> (record, the launches
+    of its main-path sweeps)."""
+    from benchmarks.torch_port.bench_vector import build_grid, grid_programs
+    from repro_torch.sweep import Axis, Sweep, run_sweep, scenario_factory
+    from repro_torch.sweep.executor import mp_context
+    from repro_torch.vector import VectorConfig, run_cells
+    rec, total = {}, {k.__name__: 0 for k in vector_kernels}
+
+    def timed_sweep(label, sweep, **kw):
+        for k in vector_kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame = run_sweep(sweep, progress=None, **kw).raise_errors()
+        wall = time.perf_counter() - t0
+        n = {k.__name__: k.launches for k in vector_kernels}
+        if n["scalar_scan"] != 1 or n["fused_quantiles"] != 1 \
+                or n["batched_scan"]:
+            fail(f"sweep {label}: one scalar_scan and one fused_quantiles "
+                 f"launch expected, got {n}")
+        for name in total:
+            total[name] += n[name]
+        cells = sum(1 for r in frame.rows
+                    if r.params.get("runtime", sweep.runtime) == "vector")
+        print(f"e2e sweep {label}: {len(frame.rows)} rows ({cells} vector "
+              f"cells) in {wall:.4f} s ({cells / wall:.1f} cells/s); "
+              f"launches {n}", flush=True)
+        return frame, {"rows": len(frame.rows), "vector_cells": cells,
+                       "wall_s": wall, "cells_per_s": cells / wall,
+                       "launches": n}
+
+    # the fig1 grid of the bench twin, against run_cells on its programs
+    sweep = build_grid(smoke=False, runtime="vector")
+    frame, rec["fig1"] = timed_sweep("fig1", sweep)
+    # the layer in front of run_cells: the factory and compile_experiment
+    t0 = time.perf_counter()
+    progs, seeds = grid_programs(sweep)
+    compile_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cells = run_cells(progs, seeds, VectorConfig(device="cuda"))
+    cells_s = time.perf_counter() - t0
+    sweep_rows_equal("fig1", frame, cells)
+    rec["fig1"].update(compile_s=compile_s, run_cells_s=cells_s)
+    print(f"sweep fig1: rows equal run_cells's bit for bit; factory + "
+          f"compile_experiment {compile_s:.4f} s, run_cells {cells_s:.4f} s "
+          f"({compile_s / len(progs) * 1e3:.3f} ms a cell)", flush=True)
+
+    # the flash crowd's chaos grid, against the chaos phase's rows
+    name, points = CHAOS_GRIDS[0]
+    sweep = Sweep(name=name, factory=scenario_factory(name), mode="points",
+                  points=tuple(points), reps=13, base_seed=1,
+                  seeder="spawn", runtime="vector", metrics=SWEEP_METRICS)
+    frame, rec[name] = timed_sweep(name, sweep)
+    sweep_rows_equal(name, frame, results[name])
+    print(f"sweep {name}: rows equal the chaos phase's bit for bit",
+          flush=True)
+
+    # a mixed sim|vector frame under the process executor, with the card
+    # initialised: the workers must not fork this process
+    sweep = Sweep(name="steady-mixed", factory=scenario_factory("steady"),
+                  axes=(Axis("runtime", ("sim", "vector")),
+                        Axis("qps", MIXED_QPS)),
+                  fixed={"duration": 6.0}, reps=3, runtime="vector",
+                  metrics=SWEEP_METRICS + ("shed",))
+    if not torch.cuda.is_initialized():
+        fail("sweep phase: CUDA is not initialised before the pool starts")
+    method = mp_context().get_start_method()
+    if method == "fork":
+        fail("sweep phase: the process executor would fork a CUDA process")
+    frame, rec["mixed"] = timed_sweep("steady-mixed (process)", sweep,
+                                      executor="process", workers=2)
+    serial = run_sweep(sweep, progress=None).raise_errors()
+    cpu = run_sweep(sweep, progress=None,
+                    vector_config=VectorConfig(device="cpu")).raise_errors()
+    if [r.to_dict() for r in frame.rows] != \
+            [r.to_dict() for r in serial.rows]:
+        fail("sweep steady-mixed: the process frame differs from the "
+             "serial one")
+    for row, ref in zip(frame.rows, cpu.rows):
+        why = ""
+        if row.params["runtime"] == "sim" and row.to_dict() != ref.to_dict():
+            why = "sim rows differ"
+        for m, v in ref.metrics.items():
+            g = row.metrics[m]
+            if m == "n":
+                bad = abs(g - v) > 1
+            elif m in ("dropped", "shed"):
+                bad = g != v
+            else:
+                bad = not math.isclose(g, v, rel_tol=ROW_RTOL)
+            if bad:
+                why = why or f"{m} {g!r} vs {v!r}"
+        if why:
+            fail(f"sweep steady-mixed {row.params} rep {row.rep}: card vs "
+                 f"CPU: {why}")
+    rec["mixed"].update(start_method=method)
+    print(f"sweep steady-mixed: process frame ({method} workers) equals "
+          f"the serial one; vector rows equal the CPU's", flush=True)
+    return rec, total
 
 
 def main() -> int:
@@ -1076,6 +1203,13 @@ def main() -> int:
         print(f"cpu parity {name}: cells {pick} match "
               f"({same} of 3 bit-identical)", flush=True)
     record["chaos_control"] = check_chaos_control(chaos)
+
+    # ---- main path 1c, the sweep layer: vector sweeps as one grid ----------
+    record["sweep"], sweep_launches = run_sweep_phase(results,
+                                                      vector_kernels)
+    for name in ("scalar_scan", "fused_quantiles"):
+        launches[name] += sweep_launches[name]
+    record["sweep_launches"] = sweep_launches
 
     # ---- full width, reduced depth: the card against the CPU ---------------
     record["full_width"] = check_full_width(device)

@@ -3,14 +3,14 @@
 Copy of ``repro.core.harness``: ``ServerSpec`` and ``Experiment`` (with
 the resolution of its profile, service model and token lengths),
 ``build_simulator`` and ``run``, which execute one deterministic
-simulation on the host.  ``Experiment`` runs on the vector runtime too
-(``repro_torch.vector``).  The reference's ``run_repeated`` is a shim
-over its sweep package and comes with the port's sweep.
+simulation on the host, and ``run_repeated``, the paper's 13 seeded
+repetitions as a one-point sweep (``repro_torch.sweep``).
+``Experiment`` runs on the vector runtime too (``repro_torch.vector``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 from repro_torch.core.balancer import POLICIES
 from repro_torch.core.client import ClientConfig
@@ -18,6 +18,7 @@ from repro_torch.core.profiles import (FixedProfile, TokenLengths,
                                        resolve_service_model,
                                        tailbench_profile)
 from repro_torch.core.simulator import SimConfig, SimServer, Simulator
+from repro_torch.core.stats import LatencyRecorder, confidence95
 
 
 @dataclass
@@ -157,3 +158,33 @@ def run(exp: Experiment, rep: int = 0) -> Simulator:
     sim = build_simulator(exp, rep=rep)
     sim.run()
     return sim
+
+
+def _repeated_point(exp: Experiment, ctx):
+    """Sweep factory for ``run_repeated``: replay the base experiment
+    under the derived per-repetition seed."""
+    return replace(exp, seed=ctx.seed)
+
+
+def run_repeated(exp: Experiment, reps: int = 13,
+                 metric: Callable[[LatencyRecorder], float] = lambda r: r.overall().p99):
+    """Paper methodology: 13 seeded repetitions -> (mean, 95% CI half-width).
+
+    A one-point ``repro_torch.sweep`` declaration with the
+    ``"run-repeated"`` seeder on the host's event simulator (``sim``),
+    bit-compatible with the reference's ``run_repeated``: repetition
+    ``rep`` runs seed ``exp.seed + 1000*(rep+1)`` and threads ``rep``
+    into every client's RNG stream.  The first failing repetition
+    raises its original exception (``fail_fast``).
+    """
+    from functools import partial
+
+    from repro_torch.sweep import Sweep, run_sweep
+    sweep = Sweep(name="run_repeated",
+                  factory=partial(_repeated_point, exp),
+                  reps=reps, base_seed=exp.seed, seeder="run-repeated",
+                  metrics=(("value", lambda rt: metric(rt.recorder)),))
+    frame = run_sweep(sweep, executor="serial", progress=None,
+                      fail_fast=True)
+    vals = [row.metrics["value"] for row in frame.rows]
+    return confidence95(vals), vals

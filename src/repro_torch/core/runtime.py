@@ -546,7 +546,15 @@ def run_scenario(scenario, backend: str = "vector", *, rep: int = 0,
     ``"vector"`` (the grid runtime; ``vector_config`` picks the device,
     the card by default), ``"sim"`` (the event simulator, on the host) or
     ``"engine"`` (wall clock, on the supplied ``engines``).  Returns the
-    finished runtime (telemetry under ``.telemetry``)."""
+    finished runtime (telemetry under ``.telemetry``).
+
+    The default backend differs from the reference's: ``"vector"`` here,
+    ``"sim"`` in ``repro.core.runtime.run_scenario``.  The port's entry
+    points run on the card unless the caller asks for the host, so
+    ``run_scenario(sc)`` gives the card's vector rows, which are
+    statistically equivalent to ``sim``'s, not equal to them; it raises
+    where there is no card.  Pass ``backend="sim"`` for the reference's
+    default (its rows bit-identical to the reference's)."""
     exp = scenario.compile()
     if backend == "sim":
         rt = SimulatorRuntime(exp, rep=rep)

@@ -10,7 +10,9 @@ runtime, the event simulator or engines.
     PYTHONPATH=src python -m repro_torch.scenarios steady --backend engine \
         --arch phi3-mini-3.8b --duration 5
 
-``--backend vector`` (default) runs the batched grid runtime;
+``--backend vector`` (default) runs the batched grid runtime on the
+card — the reference's ``python -m repro.scenarios`` defaults to
+``--backend sim``, but the port's entry points default to the card;
 ``--backend sim`` runs the virtual-time event simulator on the host
 (exact: retries, timeouts, breakers and the control loop per request;
 it never touches the card); ``--backend engine`` drives the wall-clock
@@ -74,7 +76,11 @@ def main(argv=None) -> int:
     ap.add_argument("name", nargs="?", help="scenario name (see --list)")
     ap.add_argument("--list", action="store_true")
     ap.add_argument("--backend", default="vector",
-                    choices=["sim", "engine", "vector"])
+                    choices=["sim", "engine", "vector"],
+                    help="vector (default: the grid runtime on --device; "
+                         "the reference's default is sim, but the port's "
+                         "entry points default to the card), sim (the "
+                         "event simulator, on the host) or engine")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the vector runtime or the model runs "
                          "(cpu = the kernels' plain PyTorch versions); "

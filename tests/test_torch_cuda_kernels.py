@@ -473,3 +473,32 @@ def test_ssd_scan_ops_pads_on_the_card(cuda, s):
                           chunk=32, h0=ha)
     _ssd_f32_close(torch.cat([ya, yb], 1), ny, 32)
     _ssd_f32_close(hb, nh, 32)
+
+
+@pytest.mark.gpu
+def test_fig1_sweep_rows_equal_run_cells_on_the_card(cuda):
+    """The fig1 grid of ``benchmarks/torch_port/bench_vector.py`` through
+    ``repro_torch.sweep.run_sweep`` on the card: one ``scalar_scan`` and
+    one ``fused_quantiles`` launch, and every row equal, bit for bit, to
+    ``run_cells`` on the programs and seeds of the same declaration."""
+    import os
+    import sys
+    repo = os.path.abspath(os.path.join(os.path.dirname(__file__),
+                                        os.pardir))
+    if repo not in sys.path:
+        sys.path.insert(0, repo)
+    from benchmarks.torch_port.bench_vector import build_grid, grid_programs
+
+    from repro_torch.sweep import run_sweep
+    from repro_torch.vector import VectorConfig, run_cells
+    sweep = build_grid(smoke=False, runtime="vector")
+    scans = vector_step.scalar_scan.launches
+    heads = vector_quantiles.fused_quantiles.launches
+    frame = run_sweep(sweep, progress=None).raise_errors()
+    assert vector_step.scalar_scan.launches == scans + 1
+    assert vector_quantiles.fused_quantiles.launches == heads + 1
+    cells = run_cells(*grid_programs(sweep), VectorConfig(device="cuda"))
+    assert len(frame.rows) == len(cells) == 117
+    for row, res in zip(frame.rows, cells):
+        assert row.metrics == {m: getattr(res, m)
+                               for m in ("n", "mean", "p50", "p95", "p99")}

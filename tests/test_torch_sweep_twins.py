@@ -1,0 +1,111 @@
+"""The port's benchmark twins (``benchmarks/torch_port/``) against the
+reference scripts (``benchmarks/``), on the CPU.
+
+* Every figure twin declares the reference's ``SWEEP`` (``describe()``
+  equal, the runtime included); the ``fig1_qps_latency`` and
+  ``hedging`` twins give the reference's frames row for row (both run
+  ``sim``).
+* The ``bench_vector`` twin builds the reference's fig1 grid, with the
+  same shape buckets (one scan launch of 117 cells at full size), and
+  without a card and without ``--device cpu`` it exits non-zero rather
+  than running on the host.
+* The twins and ``chip_smoke.py`` import neither ``jax`` nor ``repro``.
+"""
+from __future__ import annotations
+
+import importlib
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("jax")
+
+REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
+if REPO not in sys.path:
+    sys.path.insert(0, REPO)
+
+from repro.sweep import run_sweep as jax_run_sweep  # noqa: E402
+from repro.vector import VectorConfig as JaxConfig  # noqa: E402
+
+from repro_torch.sweep import run_sweep  # noqa: E402
+
+FIGURES = ["fig1_qps_latency", "fig4_equivalence", "fig5_multiserver",
+           "fig6_interleaved", "fig7_dynamic_qps", "fig8_balancing",
+           "hedging"]
+
+
+def _pair(name: str):
+    return (importlib.import_module(f"benchmarks.torch_port.{name}"),
+            importlib.import_module(f"benchmarks.{name}"))
+
+
+@pytest.mark.parametrize("name", FIGURES)
+def test_figure_twin_declares_the_reference_sweep(name):
+    port, ref = _pair(name)
+    assert port.SWEEP.describe() == ref.SWEEP.describe()
+    assert port.SWEEP.tasks() == ref.SWEEP.tasks()
+    assert [port.SWEEP.seed_for(i, rep) for i, _, rep in port.SWEEP.tasks()] \
+        == [ref.SWEEP.seed_for(i, rep) for i, _, rep in ref.SWEEP.tasks()]
+
+
+@pytest.mark.parametrize("name", ["fig1_qps_latency", "hedging"])
+def test_figure_twin_frame_equals_reference(name):
+    port, ref = _pair(name)
+    got = run_sweep(port.SWEEP, progress=None).raise_errors()
+    want = jax_run_sweep(ref.SWEEP, progress=None).raise_errors()
+    assert got.spec == want.spec
+    assert json.dumps([r.to_dict() for r in got.rows]) == \
+        json.dumps([r.to_dict() for r in want.rows])
+
+
+@pytest.mark.parametrize("smoke,hist", [
+    (True, {"scalar:1280x1": 12}), (False, {"scalar:3072x1": 117})])
+def test_bench_vector_twin_grid_and_buckets(smoke, hist):
+    port, ref = _pair("bench_vector")
+    for runtime in ("sim", "vector"):
+        p, r = port.build_grid(smoke, runtime), ref.build_grid(smoke, runtime)
+        assert p.describe() == r.describe()
+        assert p.tasks() == r.tasks()
+    sweep = port.build_grid(smoke, "vector")
+    got = port.bucket_histogram(sweep)
+    assert got == ref.bucket_histogram(ref.build_grid(smoke, "vector"),
+                                       JaxConfig()) == hist
+
+
+def _no_card_env() -> dict:
+    """The environment of a run without a card: CUDA hidden."""
+    return dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                PYTHONPATH=os.path.join(REPO, "src"))
+
+
+def test_bench_vector_twin_needs_a_card_or_device_cpu(tmp_path):
+    """Without a card the default run exits non-zero before it runs any
+    grid."""
+    script = os.path.join(REPO, "benchmarks", "torch_port", "bench_vector.py")
+    out = subprocess.run([sys.executable, script, "--smoke"],
+                         env=_no_card_env(), capture_output=True, text=True,
+                         timeout=120, cwd=tmp_path)
+    assert out.returncode != 0
+    assert "torch.cuda.is_available() is False" in out.stderr
+    assert "serial event engine" not in out.stderr
+
+
+def test_twins_and_chip_smoke_import_neither_jax_nor_repro():
+    twins = FIGURES + ["bench_vector", "run", "common", "_record"]
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        f"for n in {twins!r}:\n"
+        "    importlib.import_module('benchmarks.torch_port.' + n)\n"
+        "import chip_smoke\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_no_card_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

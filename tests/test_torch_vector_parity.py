@@ -280,6 +280,33 @@ def test_cuda_is_the_default_and_never_falls_back(monkeypatch):
     assert resolve_device("cpu").type == "cpu"
 
 
+def test_entry_point_defaults_pinned(capsys):
+    """``run_scenario`` and ``python -m repro_torch.scenarios`` default to
+    the card's vector runtime where the reference's default to ``sim``;
+    both docstrings and ``--help`` say so."""
+    import inspect
+
+    from repro.core.runtime import run_scenario as jax_run_scenario
+    from repro.scenarios.__main__ import main as jax_main
+
+    from repro_torch.scenarios.__main__ import main
+    assert inspect.signature(run_scenario).parameters["backend"].default \
+        == "vector"
+    assert inspect.signature(jax_run_scenario).parameters["backend"] \
+        .default == "sim"
+    assert '``"sim"`` in ``repro.core.runtime.run_scenario``' in \
+        " ".join(run_scenario.__doc__.split())
+    with pytest.raises(SystemExit):
+        main(["--help"])
+    assert "reference's default is sim" in " ".join(
+        capsys.readouterr().out.split())
+    for run, args in ((main, ["--device", "cpu"]), (jax_main, [])):
+        assert run(["steady", "--duration", "1"] + args) == 0
+    port_line, ref_line = [ln for ln in capsys.readouterr().out.splitlines()
+                           if ln.startswith("scenario=")]
+    assert "backend=vector" in port_line and "backend=sim" in ref_line
+
+
 def test_not_ported_surfaces_raise():
     """What is still not ported raises: control on the engine runtime,
     ``batched-serving`` with ``arch=``, and soft mode."""
