@@ -6,8 +6,8 @@ tables land in ``artifacts/bench_torch/*.csv``.
 
     PYTHONPATH=src:. python benchmarks/torch_port/run.py
 
-Left out until the port carries what they need: ``fig_batching``
-(``BatchedStubEngine``), ``roofline_table`` and ``engine_serving``.
+Left out until the port carries what they need: ``roofline_table`` and
+``engine_serving``.
 """
 from __future__ import annotations
 
@@ -19,9 +19,10 @@ def main() -> None:
     from benchmarks.torch_port import (fig1_qps_latency, fig4_equivalence,
                                        fig5_multiserver, fig6_interleaved,
                                        fig7_dynamic_qps, fig8_balancing,
-                                       hedging)
+                                       fig_batching, hedging)
     benches = [fig1_qps_latency, fig4_equivalence, fig5_multiserver,
-               fig6_interleaved, fig7_dynamic_qps, fig8_balancing, hedging]
+               fig6_interleaved, fig7_dynamic_qps, fig8_balancing,
+               fig_batching, hedging]
     print("name,us_per_call,derived")
     failures = 0
     for b in benches:

@@ -55,6 +55,19 @@ pre-pass shapes) and real-model serving of a dense attention model
    per layer and prefill, ``decode_attention`` once per layer and decode
    step; ``ssd_scan`` once per layer and prefill for mamba2; warm-ups
    included), and prints the serving metrics;
+6b. drives the closed loop and the retry path on real phi3-mini-3.8b
+   replicas at full width (``run_experiment_on_real_engines``, as
+   ``launch.serve --scenario`` runs it): ``flash-crowd-autoscale`` with 2
+   active and 4 standby replicas sharing one copy of the weights, whose
+   autoscaler must scale above 2 replicas and back down, and
+   ``retry-storm`` with jittered backoff, which must retry; the offered
+   loads and the timeout are scaled to what 2 such replicas sustain,
+   measured first in the same phase (a saturation run), and to their
+   batch slots (``engine_runs``).  The autoscaler
+   must scale out on a tick inside the burst and back down after it;
+   every attempt must be served, retried, timed out or lost, with finite
+   latencies and nothing left in flight, and both attention kernels must
+   be launched;
 7. times each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, with CUDA events (median of
    repeated runs), and fails where a kernel's time reads under its
@@ -141,6 +154,41 @@ MAMBA_SERVE_ARGS = ["--arch", "mamba2-1.3b", "--replicas", "2",
 #: tokens + 32) and the prefill bucket of its 128-token prompts
 SERVE_MAX_LEN = 128 + 32 + 32
 SERVE_BUCKET = 128
+#: the engine-control phase (step 6b): the closed loop and the retry path
+#: on real phi3-mini-3.8b replicas at full width, the serving runs' shape
+#: (max batch 4, 128-token prompts, 32 new tokens).  Its saturation run
+#: offers ENGINE_SATURATION requests at 100 QPS to ENGINE_REPLICAS of them
+#: behind jsq, and the loads of its two scenarios are scaled to what it
+#: reads (engine_runs)
+ENGINE_ARCH = "phi3-mini-3.8b"
+ENGINE_SHAPE = dict(max_batch=4, prompt_len=128, max_new_tokens=32)
+ENGINE_REPLICAS = 2
+ENGINE_SLOTS = ENGINE_REPLICAS * ENGINE_SHAPE["max_batch"]
+ENGINE_SATURATION = 24
+
+
+def engine_runs(rate: float, batch_s: float) -> list:
+    """(scenario, overrides) of the engine-control phase, scaled to the
+    replicas' sustained ``rate`` (requests/s) and ``batch_s``, the latency
+    of a request in a full batch that did not queue.
+
+    One host thread steps the replicas in turn, so an opened replica adds
+    batch slots, not throughput, and the autoscaler's utilization settles
+    near the offered load over ``rate`` whatever the fleet's size.  The
+    flash crowd's base is therefore 0.1x the rate, far under the 0.35
+    scale-in threshold, and its burst adds 0.9x, which takes the offered
+    load to the rate: the slots fill, the autoscaler opens standby
+    replicas, and once the burst's backlog drains it closes them before
+    the horizon.  The backoff retry storm offers 0.4x the rate and, in
+    its 2.5 s burst, four times the fleet's batch slots, whose tail waits
+    out a timeout of 2x ``batch_s`` on a fast host and a slow one alike.
+    """
+    return [("flash-crowd-autoscale",
+             dict(duration=30.0, base_qps=0.1 * rate, peak_qps=0.9 * rate)),
+            ("retry-storm",
+             dict(duration=15.0, mode="backoff", qps=0.4 * rate,
+                  burst_len=2.5, burst_qps=4 * ENGINE_SLOTS / 2.5,
+                  timeout=2.0 * batch_s))]
 
 
 def ptxas_report(log: str) -> list:
@@ -857,6 +905,146 @@ def run_serving(args=SERVE_ARGS) -> dict:
     return report
 
 
+def fleet_saturation(engines, vocab: int, clock=time.monotonic,
+                     sleep=time.sleep) -> dict:
+    """What ``engines`` sustain under ``EngineRuntime`` behind jsq:
+    ``ENGINE_SATURATION`` requests offered at 100 QPS (within a quarter of
+    a second), drained by the fleet.  The rate is the requests served
+    over the run's wall; ``batch_s`` the slowest latency of the first
+    full batches (one per replica), which did not queue."""
+    from repro_torch.core.client import ClientConfig, ConstantQPS
+    from repro_torch.core.runtime import EngineRuntime
+    rt = EngineRuntime(
+        engines, [ClientConfig(0, ConstantQPS(100.0), seed=1,
+                               total_requests=ENGINE_SATURATION)],
+        policy="jsq", duration=60.0, vocab=vocab, seed=0,
+        prompt_len=ENGINE_SHAPE["prompt_len"],
+        max_new_tokens=ENGINE_SHAPE["max_new_tokens"], clock=clock,
+        sleep=sleep)
+    t0 = clock()
+    rt.run()
+    wall = clock() - t0
+    s = rt.telemetry.overall()
+    return {"requests": ENGINE_SATURATION, "served": s.n, "wall_s": wall,
+            "rate_per_s": s.n / wall,
+            "batch_s": max(rt.recorder.all[:ENGINE_SLOTS], default=math.nan),
+            "p50_ms": s.p50 * 1e3, "p99_ms": s.p99 * 1e3}
+
+
+def engine_capacity(card: str) -> dict:
+    """``fleet_saturation`` of ``ENGINE_REPLICAS`` warmed full-width
+    replicas on the card, with their decode step."""
+    from repro_torch.scenarios.backends import build_real_engines
+    engines, _, vocab = build_real_engines(
+        ENGINE_ARCH, ENGINE_REPLICAS, seed=0, device="cuda", **ENGINE_SHAPE)
+    rec = fleet_saturation(engines, vocab)
+    torch.cuda.synchronize()
+    rec["decode_step_ms"] = sum(e.decode_seconds for e in engines) \
+        / max(sum(e.decode_steps for e in engines), 1) * 1e3
+    print(f"engine control saturation: {card}: {rec['served']} of "
+          f"{ENGINE_SATURATION} requests in {rec['wall_s']:.3f} s, "
+          f"{rec['rate_per_s']:.3f} requests/s, first batches "
+          f"{rec['batch_s'] * 1e3:.1f} ms, p50 {rec['p50_ms']:.1f} ms, p99 "
+          f"{rec['p99_ms']:.1f} ms, decode step "
+          f"{rec['decode_step_ms']:.2f} ms", flush=True)
+    if rec["served"] != ENGINE_SATURATION or not all(
+            math.isfinite(rec[k]) and rec[k] > 0
+            for k in ("rate_per_s", "batch_s", "p99_ms")):
+        fail(f"engine control saturation: {rec['served']} of "
+             f"{ENGINE_SATURATION} served, {rec}")
+    del engines
+    torch.cuda.empty_cache()
+    return rec
+
+
+def scaled_out_in_burst(scenario, log) -> bool:
+    """Whether the autoscaler decided a size above 2 on a tick inside
+    the flash crowd's burst and a smaller one after it (``control_log``
+    holds each action at the time it applies, its decision + lag)."""
+    from repro_torch.core.scenario import FlashCrowd
+    burst = next(e for e in scenario.events if isinstance(e, FlashCrowd))
+    lag = scenario.control.lag
+    sizes = [(t - lag, p["n"]) for t, k, p in log if k == "set_scale"]
+    return any(n > 2 and burst.at <= t <= burst.at + burst.duration
+               and any(n2 < n for _, n2 in sizes[i + 1:])
+               for i, (t, n) in enumerate(sizes))
+
+
+def engine_run_fault(name: str, scenario, rt) -> str | None:
+    """The first check of step 6b that the finished run ``rt`` of
+    ``scenario`` fails, or None: every attempt handed to a replica was
+    served, retried, timed out or lost, with finite latencies, and
+    nothing is left in flight; the flash crowd scaled out inside its
+    burst and back in, the retry storm retried."""
+    s = rt.telemetry.overall()
+    fails = rt.recorder.failures
+    if s.n < 1 or not all(math.isfinite(x) for x in rt.recorder.all):
+        return f"{s.n} served, latencies not all finite"
+    if rt.submitted != s.n + rt.retries + rt.timeouts + fails["failed"]:
+        return (f"{rt.submitted} attempts but {s.n} served + {rt.retries} "
+                f"retried + {rt.timeouts} timed out + {fails['failed']} "
+                f"failed")
+    if (fails["shed"], fails["timeout"]) != (rt.shed, rt.timeouts):
+        return (f"failures {fails} against shed {rt.shed}, timeouts "
+                f"{rt.timeouts}")
+    if rt._meta or rt._retry_q or rt._pending_actions:
+        return (f"{len(rt._meta)} attempts, {len(rt._retry_q)} retries and "
+                f"{len(rt._pending_actions)} actions left in flight")
+    if name == "flash-crowd-autoscale":
+        if not scaled_out_in_burst(scenario, rt.control_log):
+            return (f"the autoscaler must scale above 2 replicas on a tick "
+                    f"inside the burst and back down, control_log "
+                    f"{rt.control_log}")
+    elif rt.retries < 1:
+        return f"no request was retried (timeouts {rt.timeouts})"
+    return None
+
+
+def run_engine_control(card: str, kernels) -> tuple:
+    """The closed loop and the retry path on real replicas: the fleet's
+    saturation run, then each of ``engine_runs`` scaled to it through
+    ``run_experiment_on_real_engines``, as ``launch.serve --scenario``
+    runs it.  -> (record, launches of ``kernels`` over the scenarios)."""
+    from repro_torch.scenarios import get
+    from repro_torch.scenarios.backends import run_experiment_on_real_engines
+    cap = engine_capacity(card)
+    record = {"saturation": cap}
+    launches = {k.__name__: 0 for k in kernels}
+    for name, kw in engine_runs(cap["rate_per_s"], cap["batch_s"]):
+        scenario = get(name, seed=0, **kw)
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        rt = run_experiment_on_real_engines(
+            scenario.compile(), arch=ENGINE_ARCH, seed=0, device="cuda",
+            **ENGINE_SHAPE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = {k.__name__: k.launches for k in kernels}
+        s = rt.telemetry.overall()
+        rec = {"kw": kw, "served": s.n, "submitted": rt.submitted,
+               "dropped": rt.dropped, "shed": rt.shed,
+               "timeouts": rt.timeouts, "retries": rt.retries,
+               "failures": dict(rt.recorder.failures),
+               "p50_ms": s.p50 * 1e3, "p99_ms": s.p99 * 1e3,
+               "control_log": rt.control_log, "launches": n, "wall_s": wall}
+        record[name] = rec
+        print(f"engine control {name}: {card}: served {s.n}, shed "
+              f"{rt.shed}, timeouts {rt.timeouts}, retries {rt.retries}, "
+              f"p50 {s.p50 * 1e3:.1f} ms, p99 {s.p99 * 1e3:.1f} ms, "
+              f"control_log {rt.control_log}, launches {n}, "
+              f"{wall:.1f} s", flush=True)
+        fault = engine_run_fault(name, scenario, rt)
+        if fault:
+            fail(f"engine control {name}: {fault}")
+        for kname, count in n.items():
+            if count < 1:
+                fail(f"engine control {name}: kernel {kname} was not "
+                     f"launched")
+            launches[kname] += count
+    return record, launches
+
+
 def run_grids(grids) -> tuple:
     """Runs every grid end to end on the card through ``run_cells``;
     returns ({name: rows}, {name: wall time and cells/s}) and prints one
@@ -1273,6 +1461,13 @@ def main() -> int:
           f"prefill {r['prefill_ms']:.2f} ms, decode step "
           f"{r['decode_step_ms']:.2f} ms, {r['tokens_per_s']:.1f} tokens/s",
           flush=True)
+
+    # ---- main path 4, control on real phi3 replicas at full width ----------
+    record["engine_control"], ec_launches = run_engine_control(
+        card, attention_kernels)
+    for name, n in ec_launches.items():
+        launches[name] += n
+    record["engine_control_launches"] = ec_launches
 
     # ---- the kernels line ---------------------------------------------------
     src = "src/repro_torch/kernels/csrc/"

@@ -11,7 +11,7 @@ requests are accounted explicitly in the latency statistics (see
 percentiles.
 
 Copy of ``repro.control``, NumPy only: the event simulator, the vector
-compiler's fluid pre-pass and (later) the engine runtime share it.
+compiler's fluid pre-pass and the engine runtime share it.
 The package deliberately imports nothing from ``repro_torch.core`` — the
 runtimes import it, never the reverse.
 """

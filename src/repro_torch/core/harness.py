@@ -58,9 +58,9 @@ class Experiment:
     service_model: Optional[object] = None
     lengths: Optional[object] = None          # default per-request TokenLengths
     # resilience + closed-loop control (repro_torch.control): RetryPolicy
-    # and BreakerSpec run on the simulator (the vector runtime records
-    # them as unsupported), ControlSpec on the simulator and the vector
-    # runtime's fluid pre-pass
+    # and BreakerSpec run on the simulator and the engine runtime (the
+    # vector runtime records them as unsupported), ControlSpec on those
+    # two and the vector runtime's fluid pre-pass
     retry: Optional[object] = None
     breaker: Optional[object] = None
     control: Optional[object] = None

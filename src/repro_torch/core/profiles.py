@@ -163,6 +163,11 @@ class TokenLengths:
                 self._int_moments(self.new_median, self.new_sigma,
                                   self.new_max))
 
+    @property
+    def mean_new_tokens(self) -> float:
+        """Mean of the untruncated log-normal output-token law."""
+        return self.new_median * math.exp(self.new_sigma ** 2 / 2)
+
 
 @dataclass(frozen=True)
 class ScalarService:
@@ -192,10 +197,44 @@ class BatchedService:
         return max(self.t_prefill_per_token * max(prompt_tokens, 1),
                    self.t_memory)
 
+    def step_time_array(self, batch):
+        """``step_time`` as an array op: the roofline step law the
+        vector runtime applies per time slot."""
+        return np.maximum(self.t_compute_per_seq * np.maximum(batch, 1),
+                          self.t_memory)
+
     def prefill_time_array(self, prompt_tokens):
         return np.maximum(
             self.t_prefill_per_token * np.maximum(prompt_tokens, 1),
             self.t_memory)
+
+    @property
+    def ridge_batch(self) -> float:
+        """Batch size where the step flips memory- to compute-bound."""
+        return self.t_memory / self.t_compute_per_seq
+
+    def service_rate(self, batch: int) -> float:
+        """Tokens/sec the whole server sustains at occupancy ``batch``."""
+        b = max(batch, 1)
+        return b / self.step_time(b)
+
+    @classmethod
+    def from_arch(cls, arch: str, *, chips: int = 8) -> "BatchedService":
+        """Calibrate from an architecture's roofline terms, as the
+        reference does: memory = one pass over the active parameters (2
+        bytes each) at the device memory rate, compute = 2*N_active
+        FLOPs per token at the bf16 peak (prefill is compute-bound at
+        the same per-token cost), spread over ``chips`` devices.  The
+        rates are the H100's datasheet figures
+        (``repro_torch.launch.mesh``), not the TPU v5e's."""
+        from repro_torch.configs.base import get_config
+        from repro_torch.launch import mesh
+        from repro_torch.models import registry as R
+        cfg = get_config(arch)
+        n_active = R.count_params(cfg, active=True)
+        t_mem = 2.0 * n_active / (chips * mesh.HBM_BW)
+        t_comp = 2.0 * n_active / (chips * mesh.PEAK_FLOPS_BF16)
+        return cls(f"batched:{arch}", t_mem, t_comp, t_comp)
 
 
 def resolve_service_model(model, profile) -> "ScalarService | BatchedService":

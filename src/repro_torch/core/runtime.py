@@ -11,17 +11,22 @@ Trimmed copy of ``repro.core.runtime``:
 * ``SimulatorRuntime`` is the thin adapter over ``build_simulator``;
 * ``EngineRuntime`` is the wall-clock loop that drives step-based
   engines (``repro_torch.serving.engine``: the real ``InferenceEngine``
-  on the card, or ``StubEngine``) with the reference's
+  on the card, or the ``StubEngine`` and ``BatchedStubEngine``
+  stand-ins) with the reference's
   ``ClientGenerator`` arrival processes, the ``Balancer``
   assign/route/release lifecycle and the ``LatencyRecorder`` /
   ``MetricsPipeline`` telemetry;
 * ``VirtualClock`` lets that loop run in accelerated virtual time.
 
-Not ported yet: the resilience and control features of
-``repro_torch.control`` on ``EngineRuntime`` (retries, breakers,
-admission control, the control loop, and the ``set_retry``,
-``set_breaker``, ``set_admission`` and ``set_scale`` injections), which
-raise ``NotImplementedError`` there.  The simulator runs them all.
+``EngineRuntime`` carries the reference's resilience and control stack
+(``repro_torch.control``): admission control with sheds as an explicit
+disposition, circuit-breaker-filtered routing, per-attempt timeouts
+with budgeted, jittered retries (the engine keeps serving a timed-out
+request as zombie work), the closed control loop with its actuation lag,
+and the ``set_admission``, ``set_scale``, ``set_retry`` and
+``set_breaker`` injections.  Its jitter and admission draws come from
+the reference's ``(RESILIENCE_STREAM, seed, rep)`` stream, so stub
+engines on a ``VirtualClock`` give the reference's rows bit for bit.
 """
 from __future__ import annotations
 
@@ -32,21 +37,23 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 
+from repro_torch.control import (AdmissionController, CircuitBreaker,
+                                 ControlLoop, RetryBudget)
+from repro_torch.control.resilience import RESILIENCE_STREAM
 from repro_torch.core.balancer import POLICIES
 from repro_torch.core.client import ClientConfig, ClientGenerator
 from repro_torch.core.harness import Experiment, build_simulator
 from repro_torch.core.profiles import FixedProfile
 from repro_torch.core.request import Request
+from repro_torch.core.scenario import Injection
 from repro_torch.core.stats import LatencyRecorder, MetricsPipeline
 
 # injection kinds the wall-clock backend honors; speed scaling and
 # hedging need simulator control over service execution and are
 # reported as unsupported, as the reference does
 _ENGINE_INJECTIONS = ("server_join", "server_drain", "server_fail",
-                      "set_policy")
-# injection kinds of repro_torch.control that EngineRuntime does not
-# carry yet (the simulator does)
-_NOT_PORTED = ("set_admission", "set_scale", "set_retry", "set_breaker")
+                      "set_policy", "set_admission", "set_scale",
+                      "set_retry", "set_breaker")
 
 
 class SimulatorRuntime:
@@ -170,7 +177,9 @@ class EngineRuntime:
     streams), connection assignment / request routing / departure go
     through the full ``Balancer`` lifecycle, completions are recorded by
     a ``LatencyRecorder`` and per-interval gauges feed the
-    ``MetricsPipeline``.
+    ``MetricsPipeline``.  Admission control, circuit breakers, retries
+    and the control loop act on the wall clock as the simulator's act on
+    virtual time.
     """
 
     def __init__(self, engines, clients: Sequence[ClientConfig], *,
@@ -179,21 +188,11 @@ class EngineRuntime:
                  vocab: int = 256, seed: int = 0, time_scale: float = 1.0,
                  interval: float = 1.0, slo: Optional[float] = None,
                  injections: Sequence = (), rep: int = 0,
-                 profile=None, lengths=None,
+                 profile=None, lengths=None, stats_mode: str = "exact",
                  engine_factory: Optional[Callable[[int], object]] = None,
                  retry=None, breaker=None, control=None,
                  clock: Callable[[], float] = time.monotonic,
                  sleep: Callable[[float], None] = time.sleep):
-        for name, spec in (("retry", retry), ("breaker", breaker),
-                           ("control", control)):
-            if spec is not None:
-                raise NotImplementedError(f"{name} (repro.control) is not "
-                                          f"ported yet")
-        for inj in injections:
-            if inj.kind in _NOT_PORTED:
-                raise NotImplementedError(f"injection {inj.kind!r} "
-                                          f"(repro.control) is not ported "
-                                          f"yet")
         if isinstance(engines, dict):
             handle_map = {sid: EngineServerHandle(sid, e)
                           for sid, e in engines.items()}
@@ -212,10 +211,11 @@ class EngineRuntime:
         # timestamps are recorded in wall seconds; with a stretched clock
         # (time_scale != 1) the recorder's bucket width scales with them so
         # interval indices stay in *virtual* time
-        self.recorder = LatencyRecorder(interval * time_scale)
+        self.recorder = LatencyRecorder(interval * time_scale,
+                                        mode=stats_mode, seed=seed, rep=rep)
         self.telemetry = MetricsPipeline(self.recorder, interval, slo=slo)
         self.dropped = 0
-        self.submitted = 0             # requests handed to an engine
+        self.submitted = 0             # attempts handed to an engine
         self._clock = clock
         self._sleep = sleep
         self._rng = np.random.default_rng(seed)
@@ -229,9 +229,33 @@ class EngineRuntime:
                                          lengths=lengths)
             for c in clients}
         self.assignment: dict[int, EngineServerHandle] = {}
-        # req_id -> (cid, t_created_wall, server_id)
+        # req_id -> (cid, t_created_wall, attempt, prev_delay, ptoks,
+        #            mnew, server_id)
         self._meta: dict[int, tuple] = {}
         self.slo = slo
+        # the resilience stack: the simulator's policies and its
+        # domain-tagged RNG stream, actuated on the wall clock
+        self.shed = 0
+        self.timeouts = 0
+        self.retries = 0
+        self._res_rng = np.random.default_rng((RESILIENCE_STREAM, seed, rep))
+        self._admission: Optional[AdmissionController] = None
+        self._breaker = CircuitBreaker(breaker) if breaker else None
+        self._retry = retry
+        self._retry_budget = (RetryBudget(retry.budget_ratio,
+                                          retry.budget_burst)
+                              if retry else None)
+        self._deadlines: list = []     # (deadline_wall, req_id)
+        self._retry_q: list = []       # (due_wall, seq, cid, t_created_wall,
+                                       #  attempt, prev_delay, ptoks, mnew)
+        self._rseq = itertools.count()
+        # closed-loop control: tick boundaries are wall instants; actions
+        # apply after the actuation lag through the same dispatch as
+        # compiled injections
+        self.control_log: list = []    # (t_virtual_applied, kind, params)
+        self._control = ControlLoop(control) if control else None
+        self._pending_actions: list = []   # (due_wall, seq, kind, params)
+        self._next_control: Optional[float] = None
         # (at, seq) order: ties at identical timestamps apply in
         # declaration order, matching the simulator's total order
         self._injections = sorted((i for i in injections
@@ -269,8 +293,6 @@ class EngineRuntime:
         timelines are the reference's draw for draw.
         """
         from dataclasses import replace as _replace
-
-        from repro_torch.core.scenario import Injection
 
         base = [s for s in exp.servers if s.join_at == 0.0]
         if not isinstance(engines, dict):
@@ -314,11 +336,12 @@ class EngineRuntime:
                  max_new_tokens=max_new_tokens, seed=exp.seed,
                  time_scale=time_scale, slo=exp.slo, injections=injections,
                  rep=rep, profile=exp.resolved_profile(),
-                 lengths=exp.resolved_lengths(),
+                 lengths=exp.resolved_lengths(), stats_mode=exp.stats_mode,
                  engine_factory=engine_factory, retry=exp.retry,
                  breaker=exp.breaker, control=exp.control,
                  clock=clock, sleep=sleep)
-        # standby pool: engines exist but start drained
+        # standby pool: engines exist (built and warm) but start drained
+        # until a scale action activates them
         for s in exp.servers:
             if s.standby:
                 h = rt.handles.get(s.server_id)
@@ -366,13 +389,34 @@ class EngineRuntime:
                 self.dropped += 1
                 return False
             self.assignment[cid] = handle
-        self._submit(cid, t_arr, ptoks, mnew)
+        self._submit(cid, t_arr, t_arr, ptoks, mnew, 0, 0.0)
         return True
 
-    def _submit(self, cid: int, t_sub: float, ptoks: int, mnew: int) -> None:
-        """Route and submit one request at wall instant ``t_sub``."""
-        handle = self.balancer.route(None, self._alive,
-                                     self.assignment.get(cid))
+    def _submit(self, cid: int, t_sub: float, t_created: float, ptoks: int,
+                mnew: int, attempt: int, prev_delay: float) -> None:
+        """Route and submit one attempt (primary or retry) at wall instant
+        ``t_sub``, as the simulator routes: admission control first
+        (sheds are an explicit disposition), then breaker-filtered
+        routing, then the attempt's timeout deadline."""
+        t_virt = t_sub / self.time_scale
+        adm = self._admission
+        if adm is not None and not adm.allow(t_virt, self._res_rng):
+            self.shed += 1
+            self.dropped += 1
+            self.recorder.record_failure(t_sub, "shed")
+            return
+        pref = self.assignment.get(cid)
+        alive = self._alive
+        brk = self._breaker
+        if brk is not None:
+            allowed = {h.server_id: brk.allow(h.server_id, t_virt)
+                       for h in alive}
+            ok = [h for h in alive if allowed[h.server_id]]
+            if ok:
+                alive = ok
+                if pref is not None and not allowed.get(pref.server_id, True):
+                    pref = None
+        handle = self.balancer.route(None, alive, pref)
         if handle is None or handle.failed:
             self.dropped += 1
             self.recorder.record_failure(t_sub, "failed")
@@ -381,17 +425,24 @@ class EngineRuntime:
         n_prompt = ptoks if ptoks > 0 else self.prompt_len
         n_new = mnew if mnew > 0 else self.max_new_tokens
         prompt = self._rng.integers(0, self.vocab, size=n_prompt)
-        self._meta[rid] = (cid, t_sub, handle.server_id)
+        self._meta[rid] = (cid, t_created, attempt, prev_delay, ptoks, mnew,
+                           handle.server_id)
         handle.outstanding.add(rid)
         handle.engine.submit(prompt, n_new, rid)
         self.submitted += 1
+        rp = self._retry
+        if rp is not None:
+            if attempt == 0 and self._retry_budget is not None:
+                self._retry_budget.note_primary()
+            heapq.heappush(self._deadlines,
+                           (t_sub + rp.timeout * self.time_scale, rid))
 
     def _complete(self, handle: EngineServerHandle, comp, wall: float) -> None:
         meta = self._meta.pop(comp.req_id, None)
         handle.outstanding.discard(comp.req_id)
         if meta is None:
-            return     # a request of a failed server: the work was real,
-                       # the response is not
+            return     # a failed server's request or a timed-out zombie:
+                       # the work was real, the response is not
         cid, t_arr = meta[0], meta[1]
         rec = Request(comp.req_id, cid, t_arr, 0.0)
         rec.enqueued = t_arr
@@ -399,6 +450,9 @@ class EngineRuntime:
         rec.completed = wall
         rec.server_id = handle.server_id
         self.recorder.record(rec)
+        if self._breaker is not None:
+            self._breaker.record(handle.server_id, True,
+                                 wall / self.time_scale)
         handle.total_served += 1
 
     def _apply_injection(self, inj, now: float = 0.0) -> None:
@@ -433,6 +487,9 @@ class EngineRuntime:
                     if self._meta.pop(rid, None) is not None:
                         self.dropped += 1
                         self.recorder.record_failure(now, "failed")
+                        if self._breaker is not None:
+                            self._breaker.record(h.server_id, False,
+                                                 now / self.time_scale)
                 h.outstanding.clear()
                 self._rebuild_alive()
                 for cid in list(h.connected):
@@ -441,8 +498,113 @@ class EngineRuntime:
         elif kind == "set_policy":
             pol = p["policy"]
             self.balancer = POLICIES[pol]() if isinstance(pol, str) else pol
+        elif kind == "set_admission":
+            admit, rate = p.get("admit"), p.get("rate")
+            if rate is None and (admit is None or admit >= 1.0):
+                self._admission = None
+            else:
+                self._admission = AdmissionController(
+                    admit=admit, rate=rate, burst=p.get("burst", 1.0))
+        elif kind == "set_scale":
+            self.scale_to(int(p["n"]))
+        elif kind == "set_retry":
+            pol = p["policy"]
+            self._retry = pol
+            self._retry_budget = (RetryBudget(pol.budget_ratio,
+                                              pol.budget_burst)
+                                  if pol is not None else None)
+        elif kind == "set_breaker":
+            spec = p["spec"]
+            self._breaker = CircuitBreaker(spec) if spec is not None else None
         else:                                   # pre-filtered in __init__
             raise ValueError(f"unsupported engine injection: {kind!r}")
+
+    def scale_to(self, n: int) -> None:
+        """Elastic scale, as the simulator's ``scale_to``: activate the
+        first ``n`` non-failed handles in server-id order and drain the
+        rest (in-flight work completes, clients re-home)."""
+        pool = [h for h in sorted(self.handles.values(),
+                                  key=lambda h: h.server_id)
+                if not h.failed]
+        for h in pool[:n]:
+            if h.draining:
+                h.draining = False
+                h.accepting = True
+        for h in pool[n:]:
+            if not h.draining:
+                h.draining = True
+                h.accepting = False
+                for cid in list(h.connected):
+                    h.disconnect(cid)
+                    self._reassign(cid)
+        self._rebuild_alive()
+
+    def _check_deadlines(self, now: float) -> None:
+        """Expire the attempt timeouts due by ``now``.  The engine-side
+        request is not cancelled: it keeps its batch slot until it
+        completes, and ``_complete`` then discards it (zombie work, the
+        simulator's wasted-work semantics)."""
+        while self._deadlines and self._deadlines[0][0] <= now:
+            deadline, rid = heapq.heappop(self._deadlines)
+            meta = self._meta.pop(rid, None)
+            if meta is None:
+                continue               # completed (or destroyed) in time
+            cid, t_created, attempt, prev_delay, ptoks, mnew, sid = meta
+            rp = self._retry
+            if rp is None:
+                continue               # policy removed mid-flight
+            if self._breaker is not None:
+                self._breaker.record(sid, False, deadline / self.time_scale)
+            budget = self._retry_budget
+            if (attempt < rp.max_retries and budget is not None
+                    and budget.allow()):
+                budget.note_retry()
+                self.retries += 1
+                delay = rp.delay(attempt + 1, prev_delay, self._res_rng)
+                heapq.heappush(self._retry_q,
+                               (deadline + delay * self.time_scale,
+                                next(self._rseq), cid, t_created,
+                                attempt + 1, delay, ptoks, mnew))
+            else:
+                self.timeouts += 1
+                self.dropped += 1
+                self.recorder.record_failure(deadline, "timeout")
+
+    def _drain_retries(self, now: float) -> None:
+        """Re-issue the backed-off retries due by ``now`` (they re-enter
+        ``_submit``, so they pass admission control again)."""
+        while self._retry_q and self._retry_q[0][0] <= now:
+            due, _, cid, t_created, attempt, prev_delay, ptoks, mnew = \
+                heapq.heappop(self._retry_q)
+            self._submit(cid, due, t_created, ptoks, mnew, attempt,
+                         prev_delay)
+
+    def _control_step(self, now: float) -> None:
+        """Closed-loop controller: tick at each control boundary due by
+        ``now``, queue its actions for ``now + lag``, apply due actions."""
+        loop = self._control
+        spec = loop.spec
+        scale = self.time_scale
+        while (self._next_control <= now
+               and self._next_control <= self.duration * scale):
+            t_virt = self._next_control / scale
+            admit = (self._admission.level
+                     if self._admission is not None else 1.0)
+            slo_wall = self.slo * scale if self.slo is not None else None
+            # observe in the recorder's (wall) time base, gate the
+            # cooldown in virtual time, as the simulator does
+            obs = loop.observe(self.recorder, self._alive,
+                               self._next_control, slo_wall, admit)
+            for kind, params in loop.tick(obs, t_virt):
+                due = self._next_control + spec.lag * scale
+                self.control_log.append((t_virt + spec.lag, kind,
+                                         dict(params)))
+                heapq.heappush(self._pending_actions,
+                               (due, next(self._rseq), kind, dict(params)))
+            self._next_control += spec.interval * scale
+        while self._pending_actions and self._pending_actions[0][0] <= now:
+            due, _, kind, params = heapq.heappop(self._pending_actions)
+            self._apply_injection(Injection(due, kind, params), now=due)
 
     def _reassign(self, cid: int) -> None:
         self.balancer.release(cid)
@@ -466,7 +628,11 @@ class EngineRuntime:
             self._next_sample += self.interval * self.time_scale
 
     def _next_events(self, heap: list, inj_idx: int, end_wall: float) -> list:
-        """Wall instants of the next arrival, injection and gauge sample."""
+        """Wall instants of the next due event of every kind: arrival,
+        injection, gauge sample, attempt deadline, retry, lagged control
+        action and control tick.  Only events that clear themselves
+        belong here (the horizon does not: parking the clock on it would
+        wedge a completion due just past it)."""
         targets = []
         if heap:
             targets.append(heap[0][0])
@@ -474,6 +640,11 @@ class EngineRuntime:
             targets.append(self._injections[inj_idx].at * self.time_scale)
         if self._next_sample <= end_wall:
             targets.append(self._next_sample)
+        for q in (self._deadlines, self._retry_q, self._pending_actions):
+            if q:
+                targets.append(q[0][0])
+        if self._next_control is not None and self._next_control <= end_wall:
+            targets.append(self._next_control)
         return targets
 
     # ---------------------------------------------------------------- run
@@ -484,6 +655,8 @@ class EngineRuntime:
         injections = self._injections
         inj_idx = 0
         self._next_sample = self.interval * self.time_scale
+        self._next_control = (self._control.spec.interval * self.time_scale
+                              if self._control is not None else None)
         end_wall = self.duration * self.time_scale
         t0 = self._clock()
         while True:
@@ -495,16 +668,22 @@ class EngineRuntime:
                                       * self.time_scale)
                 inj_idx += 1
             self._drain_gauges(now)
+            if self._control is not None:
+                self._control_step(now)
+            self._check_deadlines(now)
+            self._drain_retries(now)
             admitted = False
             while heap and heap[0][0] <= now:
                 t_arr, cid, ptoks, mnew = heapq.heappop(heap)
                 if self._admit(cid, t_arr, ptoks, mnew):
                     self._push_next(heap, cid)
                 admitted = True
-            # pending injections keep the loop alive (sleeping toward
-            # them) even after the last request drains, as the
-            # simulator's horizon does
-            if not heap and not self._meta and inj_idx >= len(injections):
+            # pending injections, retries and control actions keep the
+            # loop alive (sleeping toward them) even after the last
+            # request drains, as the simulator's horizon does
+            if (not heap and not self._meta and not self._retry_q
+                    and not self._pending_actions
+                    and inj_idx >= len(injections)):
                 break
             # park the next due event on the clock so engines skipping
             # ahead in virtual time cannot leap over it

@@ -9,9 +9,10 @@ Real wall-clock serving of a real model (random weights drawn from
 ``--seed``, shared by every replica) driven by open-loop clients — the
 end-to-end entry point for this paper's kind (latency-critical serving).
 Runs on the card unless ``--device cpu``, on ``EngineRuntime``, so
-``--scenario`` can replay a canonical dynamic scenario against the
-engines (client churn and server join/drain/fail are honored;
-hedging/slowdown injections are simulator-only and reported as
+``--scenario`` can replay a canonical or chaos scenario against the
+engines (client churn, server join/drain/fail, and the retries,
+breakers, admission control and autoscaler of the chaos scenarios are
+honored; hedging/slowdown injections are simulator-only and reported as
 skipped).
 
 Besides the latency summary it prints one ``serve: {...}`` JSON line:

@@ -61,7 +61,15 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     return P.init_tree(model_specs(cfg), generator, device)
 
 
-def count_params(cfg: ArchConfig) -> int:
+def count_params(cfg: ArchConfig, active: bool = False) -> int:
+    """Parameter count; ``active=True`` counts those one token reads.
+    For the dense and Mamba families the port runs, every parameter is
+    active, so both counts are the total; an MoE config (its routed
+    experts read ``top_k`` of ``num_experts``) raises until MoE is
+    ported."""
+    if active and cfg.moe is not None:
+        raise NotImplementedError("active parameters of an MoE config "
+                                  "(MoE is not ported yet)")
     return P.count_params_tree(model_specs(cfg))
 
 

@@ -7,6 +7,8 @@ runtime, the event simulator or engines.
     PYTHONPATH=src python -m repro_torch.scenarios flash-crowd-autoscale --device cpu
     PYTHONPATH=src python -m repro_torch.scenarios retry-storm --backend sim
     PYTHONPATH=src python -m repro_torch.scenarios server-failure --backend engine --stub
+    PYTHONPATH=src python -m repro_torch.scenarios retry-storm --backend engine --stub
+    PYTHONPATH=src python -m repro_torch.scenarios batched-serving --backend engine --stub
     PYTHONPATH=src python -m repro_torch.scenarios steady --backend engine \
         --arch phi3-mini-3.8b --duration 5
 
@@ -16,11 +18,13 @@ card — the reference's ``python -m repro.scenarios`` defaults to
 ``--backend sim`` runs the virtual-time event simulator on the host
 (exact: retries, timeouts, breakers and the control loop per request;
 it never touches the card); ``--backend engine`` drives the wall-clock
-runtime against profile-timed ``StubEngine`` replicas in accelerated
-virtual time (``--stub``, the default without ``--arch``) or against
-real ``InferenceEngine`` replicas of a model (``--arch``).  The vector
-and model runs go to the CUDA card; ``--device cpu`` runs the kernels'
-plain PyTorch versions on the CPU instead.  The report's first line
+runtime against stub replicas in accelerated virtual time (``--stub``,
+the default without ``--arch``: profile-timed ``StubEngine``s, or
+``BatchedStubEngine``s for a batched service model) or against real
+``InferenceEngine`` replicas of a model (``--arch``); retries, breakers,
+admission control and the control loop run on it as on ``sim``.  The
+vector and model runs go to the CUDA card; ``--device cpu`` runs the
+kernels' plain PyTorch versions on the CPU instead.  The report's first line
 names the backend and where it ran (``device=host`` for ``sim`` and
 the stub engines).
 """

@@ -3,8 +3,8 @@
 Copy of ``repro.scenarios.backends``: one place constructs the engine
 replicas (and the join factory) a compiled scenario's engine backend
 needs — real ``InferenceEngine``s on the card (or the CPU when asked),
-warmed, all sharing one copy of the weights, or profile-timed
-``StubEngine``s on a virtual clock.
+warmed, all sharing one copy of the weights, or ``StubEngine`` /
+``BatchedStubEngine`` stand-ins on a virtual clock.
 """
 from __future__ import annotations
 
@@ -66,25 +66,29 @@ def run_experiment_on_real_engines(exp, *, arch: str, smoke: bool = False,
 
 
 def build_stub_engines(exp, clock: Callable[[], float], seed: int = 0):
-    """-> (engines, factory): one profile-timed ``StubEngine`` per initial
-    server spec of the compiled experiment, honoring workers and speed.
-    Experiments with a batched ``service_model`` need the batched stub,
-    which is not ported yet."""
-    from repro_torch.serving.engine import StubEngine
+    """-> (engines, factory): one stub replica per initial server spec of
+    the compiled experiment, honoring workers/max_batch and speed.
+
+    A scalar experiment gets profile-timed ``StubEngine`` slots; an
+    experiment with a batched ``service_model`` gets ``BatchedStubEngine``
+    replicas running the ``BatchScheduler``/``BatchedService`` dynamics
+    of the simulator's batched serve loop."""
+    from repro_torch.serving.engine import BatchedStubEngine, StubEngine
 
     service = exp.resolved_service()
-    if getattr(service, "kind", "scalar") == "batched":
-        raise NotImplementedError("BatchedStubEngine (batched service "
-                                  "models on the engine backend) is not "
-                                  "ported yet")
+    batched = getattr(service, "kind", "scalar") == "batched"
     profile = exp.resolved_profile()
     specs = {s.server_id: s for s in exp.servers}
 
-    def make(sid: int, workers: int, speed: float, noise: float):
+    def make(sid: int, workers: int, speed: float, max_batch, noise: float):
+        if batched:
+            return BatchedStubEngine(service, max_batch=max_batch or 8,
+                                     speed=speed, service_noise=noise,
+                                     seed=seed + sid, clock=clock)
         return StubEngine(profile, workers=workers, speed=speed,
                           service_noise=noise, seed=seed + sid, clock=clock)
 
-    engines = {s.server_id: make(s.server_id, s.workers, s.speed,
+    engines = {s.server_id: make(s.server_id, s.workers, s.speed, s.max_batch,
                                  s.service_noise)
                for s in exp.servers if s.join_at == 0.0}
 
@@ -93,5 +97,6 @@ def build_stub_engines(exp, clock: Callable[[], float], seed: int = 0):
         return make(sid,
                     spec.workers if spec else 1,
                     spec.speed if spec else 1.0,
+                    spec.max_batch if spec else None,
                     spec.service_noise if spec else 0.0)
     return engines, factory

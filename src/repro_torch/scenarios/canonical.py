@@ -22,7 +22,8 @@ from repro_torch.scenarios import register
 def default_batched_service() -> BatchedService:
     """A small-model serving cost profile: 2ms weight-streaming per decode
     step (memory term), ridge point at batch 8, prompt prefill at
-    10us/token."""
+    10us/token.  Calibrate from a real architecture's roofline with
+    ``BatchedService.from_arch("phi3-mini-3.8b")`` instead."""
     return BatchedService("batched:default", t_memory=2e-3,
                           t_compute_per_seq=2.5e-4,
                           t_prefill_per_token=1e-5)
@@ -130,13 +131,13 @@ def batched_serving(*, duration: float = 30.0, seed: int = 0,
     """Continuous-batching inference fleet: BatchedService servers admit
     up to max_batch token-sized requests, per-step cost = max(compute,
     memory) from the roofline — throughput saturates sub-linearly with
-    occupancy like the real engine."""
-    if arch is not None:
-        raise NotImplementedError(
-            "batched-serving arch= (BatchedService.from_arch) is not "
-            "ported yet")
+    occupancy like the real engine, and the same scenario runs on the
+    simulator, the batched stub engine or the real engines.  ``arch=``
+    calibrates the service from that architecture's roofline on the
+    H100's figures (``BatchedService.from_arch``)."""
     if service is None:
-        service = default_batched_service()
+        service = (BatchedService.from_arch(arch) if arch
+                   else default_batched_service())
     if lengths is None:
         # bounded maxima keep the real-engine backend's cache sizing
         # (prompt_max + new_max tokens) practical

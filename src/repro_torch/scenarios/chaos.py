@@ -8,10 +8,10 @@ saturated after the original overload has passed, a rack-level
 correlated failure, a gray-failing server that is slow but not dead,
 and a reactive controller riding out a flash crowd on a standby pool.
 All are deterministic functions of their seed.  Copy of
-``repro.scenarios.chaos``: every one runs on the ``sim`` backend; on the
-vector runtime retries and circuit breaking are recorded as
-``unsupported`` and the controller runs as the compiler's fluid
-pre-pass.
+``repro.scenarios.chaos``: every one runs on the ``sim`` backend and on
+the engine backend (stub or real replicas); on the vector runtime
+retries and circuit breaking are recorded as ``unsupported`` and the
+controller runs as the compiler's fluid pre-pass.
 """
 from __future__ import annotations
 

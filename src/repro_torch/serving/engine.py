@@ -20,8 +20,9 @@ reference; their tokens are ignored.  Every ``step()`` ends by reading
 the chosen tokens back to the host, so it returns only after the card
 is done and latencies are real.
 
-``BatchedStubEngine`` (the simulator's batch scheduler on a wall clock)
-is not ported yet.
+``StubEngine`` and ``BatchedStubEngine`` are the engine protocol without
+a model: profile-timed slots, and the simulator's continuous-batching
+op sequencer (``BatchScheduler``) on a wall or virtual clock.
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import MAMBA, ArchConfig
-from repro_torch.core.profiles import apply_service_noise
+from repro_torch.core.profiles import BatchScheduler, apply_service_noise
 from repro_torch.models import param as P
 from repro_torch.models import registry as R
 
@@ -115,6 +116,108 @@ class StubEngine:
             # mimic a blocking decode step: consume (virtual) time up to
             # the earliest in-flight completion
             self.clock.advance_to(min(f for f, _, _ in self.active.values()))
+        return done
+
+
+class BatchedStubEngine:
+    """Engine-protocol stand-in with continuous-batching dynamics.
+
+    Where ``StubEngine`` times each request on an independent slot, this
+    drives the shared ``BatchScheduler`` op sequencer against a
+    ``BatchedService`` cost model: the code the simulator's batched
+    server runs in virtual time.  A decode step costs
+    ``max(compute x batch, memory)`` and a prefill is proportional to
+    the prompt, so throughput saturates with occupancy as
+    ``InferenceEngine``'s does, and as the simulator predicts.
+
+    With a clock exposing ``advance_to`` (``VirtualClock``), ``step()``
+    consumes virtual time up to the in-flight op's end, the way a real
+    engine's blocking decode step consumes wall time.
+    """
+
+    serializes_ops = True        # one op at a time: utilization is per
+                                 # engine, not per batch slot
+
+    def __init__(self, service, *, max_batch: int = 8, speed: float = 1.0,
+                 service_noise: float = 0.0, seed: int = 0,
+                 clock: Callable[[], float] = time.monotonic):
+        self.service = service
+        self.max_batch = max_batch
+        self.speed = speed
+        # per-op multiplicative log-normal noise, as the simulator's
+        # batched server applies it
+        self.service_noise = service_noise
+        self.clock = clock
+        self._rng = np.random.default_rng((9176, 0xBA7C, seed))
+        self.core = BatchScheduler(service, max_batch)
+        self._submit_at: dict[int, float] = {}
+        self._prefilled: dict[int, float] = {}
+        self._op_end: Optional[float] = None
+        # the engine's own timeline: ops chain back to back on it even
+        # when step() polls late (a shared VirtualClock advanced by a
+        # sibling replica); otherwise every poll gap would be billed as
+        # idle time and the replica would lose throughput
+        self._t = clock()
+        self.total_served = 0
+        self.busy_time = 0.0                    # accrued op seconds
+
+    @property
+    def tokens_done(self) -> int:
+        return self.core.tokens_done
+
+    def submit(self, prompt, max_new_tokens: int, req_id: int) -> None:
+        self._submit_at[req_id] = self.clock()
+        self.core.submit(req_id, len(prompt), max_new_tokens)
+
+    def pending(self) -> int:
+        return self.core.pending()
+
+    def n_active(self) -> int:
+        return self.core.occupancy()
+
+    def idle(self) -> bool:
+        return self._op_end is None and self.core.idle()
+
+    def step(self) -> list[Completion]:
+        now = self.clock()
+        done: list[Completion] = []
+        # replay the engine's background execution up to ``now``: finish
+        # due ops and chain the next one at the op boundary (never at the
+        # poll instant), admitting only requests submitted by that
+        # boundary, so op timing is the simulator's serve loop's
+        while True:
+            if self._op_end is not None:
+                if self._op_end > now:
+                    break
+                end = self._op_end
+                self._op_end = None
+                self._t = end
+                if self.core.op[0] == "prefill":
+                    self._prefilled[self.core.op[1].key] = end
+                for rid in self.core.finish_op():
+                    sub = self._submit_at.pop(rid)
+                    first = self._prefilled.pop(rid, end)
+                    done.append(Completion(rid, [], ttft=first - sub,
+                                           latency=end - sub))
+                    self.total_served += 1
+            t_op = self._t
+            if not self.core.active and self.core.waiting:
+                # idle engine: the next op starts when its head arrived
+                t_op = max(t_op, self._submit_at[self.core.waiting[0].key])
+            dur = self.core.start_op(
+                ready=lambda rid: self._submit_at[rid] <= t_op)
+            if dur is None:
+                break
+            dur = apply_service_noise(dur / self.speed, self.service_noise,
+                                      self._rng)
+            self.busy_time += dur
+            self._t = t_op
+            self._op_end = t_op + dur
+        if not done and self._op_end is not None \
+                and hasattr(self.clock, "advance_to"):
+            # mimic a blocking engine op: consume (virtual) time up to
+            # its end so the runtime's poll loop makes progress
+            self.clock.advance_to(self._op_end)
         return done
 
 

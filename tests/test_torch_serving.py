@@ -194,19 +194,50 @@ def test_stub_engine_matches_jax_stub_draws():
 
 
 def test_engine_runtime_control_features_raise():
-    clock = trt.VirtualClock()
-    sc = tsc.get("steady", duration=2.0)
-    exp = sc.compile()
-    engines, _ = tbackends.build_stub_engines(exp, clock)
-    for kw in ({"retry": object()}, {"breaker": object()},
-               {"control": object()}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            trt.EngineRuntime(engines, exp.clients, clock=clock, **kw)
+    """The control features no longer raise: ``retry``, ``breaker``,
+    ``control`` and the four control injections are accepted and
+    recorded as the reference's ``EngineRuntime`` records them."""
+    from repro.control import BreakerSpec as JBreaker
+    from repro.control import ControlSpec as JControl
+    from repro.control import RetryPolicy as JRetry
+    from repro.core.scenario import Injection as JInjection
+
+    from repro_torch.control import BreakerSpec, ControlSpec, RetryPolicy
     from repro_torch.core.scenario import Injection
-    for kind in ("set_retry", "set_breaker", "set_admission", "set_scale"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            trt.EngineRuntime(engines, exp.clients, clock=clock,
-                              injections=[Injection(1.0, kind, {})])
+
+    def build(mod_rt, backends, mod_sc, **kw):
+        clock = mod_rt.VirtualClock()
+        exp = mod_sc.get("steady", duration=2.0).compile()
+        engines, _ = backends.build_stub_engines(exp, clock)
+        return mod_rt.EngineRuntime(engines, exp.clients, clock=clock, **kw)
+
+    ctl = dict(interval=1.0, lag=2.0, cooldown=4.0, high=0.8)
+    port = build(trt, tbackends, tsc, retry=RetryPolicy(max_retries=2),
+                 breaker=BreakerSpec(window=10),
+                 control=ControlSpec.make("threshold_autoscaler", **ctl))
+    ref = build(jrt, jbackends, jsc, retry=JRetry(max_retries=2),
+                breaker=JBreaker(window=10),
+                control=JControl.make("threshold_autoscaler", **ctl))
+    assert vars(port._retry) == vars(ref._retry)
+    assert vars(port._retry_budget) == vars(ref._retry_budget)
+    assert vars(port._breaker.spec) == vars(ref._breaker.spec)
+    assert vars(port._control.spec) == vars(ref._control.spec)
+    assert vars(port._control.policy) == vars(ref._control.policy)
+    assert port._admission is ref._admission is None
+    params = {"set_retry": ({"policy": RetryPolicy()},
+                            {"policy": JRetry()}),
+              "set_breaker": ({"spec": BreakerSpec()},
+                              {"spec": JBreaker()}),
+              "set_admission": ({"admit": 0.5}, {"admit": 0.5}),
+              "set_scale": ({"n": 1}, {"n": 1})}
+    for kind, (p_params, r_params) in params.items():
+        port = build(trt, tbackends, tsc,
+                     injections=[Injection(1.0, kind, p_params)])
+        ref = build(jrt, jbackends, jsc,
+                    injections=[JInjection(1.0, kind, r_params)])
+        assert [(i.at, i.kind) for i in port._injections] == \
+            [(i.at, i.kind) for i in ref._injections] == [(1.0, kind)]
+        assert port.unsupported == ref.unsupported == []
 
 
 def _run(*args, timeout=240):
@@ -239,9 +270,11 @@ def test_scenarios_cli_engine_backend_on_cpu():
 
 
 def test_port_sources_import_neither_jax_nor_repro():
-    """Grep of every module of the port and of chip_smoke.py."""
+    """Grep of every module of the port, of its benchmark twins and of
+    chip_smoke.py."""
     pat = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|repro)\b", re.M)
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files += sorted((ROOT / "benchmarks" / "torch_port").glob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 30
     bad = {str(f.relative_to(ROOT)): pat.findall(f.read_text())

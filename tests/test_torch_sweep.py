@@ -11,8 +11,9 @@ on the CPU, against the JAX package's.
   ``device="cpu"`` within rtol 1e-6 of JAX ``impl="ref"`` (``n`` within
   1, ``dropped`` equal; observed bit-identical); ``run_repeated``
   bit-identical, failures included.
-* What is not ported raises, loudly: ``cache=``, ``mode="optimize"``,
-  and a ``batched-serving`` point on the engine runtime (an error row).
+* What is not ported raises, loudly: ``cache=`` and ``mode="optimize"``;
+  a ``batched-serving`` point on the engine runtime is an ordinary row,
+  equal to the reference's.
 * The CLI in a subprocess: ``--smoke`` and a positional vector sweep on
   ``--device cpu``, neither importing ``jax`` nor ``repro``.
 """
@@ -425,18 +426,25 @@ def test_vector_frame_matches_reference(decl):
 
 
 def test_batched_serving_engine_point_is_error_row():
-    """``BatchedStubEngine`` is not ported: a ``batched-serving`` point
-    on the engine runtime is an error row carrying that message, while
-    the sweep's other points complete."""
-    sw = Sweep(name="batched", factory=scenario_factory("batched-serving"),
-               axes=(Axis("runtime", ("engine", "vector")),),
-               fixed={"duration": 3.0, "n_servers": 1}, reps=1,
-               metrics=("n", "p99"))
+    """A ``batched-serving`` point on the engine runtime runs on
+    ``BatchedStubEngine`` replicas: an ordinary row, equal bit for bit to
+    the reference's, beside the vector point of the same sweep."""
+    from repro.sweep import Axis as JAxis
+    from repro.sweep import Sweep as JSweep
+    from repro.sweep import scenario_factory as jax_scenario_factory
+    decl = dict(name="batched", axes=(("runtime", ("engine", "vector")),),
+                fixed={"duration": 3.0, "n_servers": 1}, reps=1,
+                metrics=("n", "p99"))
+    sw = Sweep(factory=scenario_factory("batched-serving"),
+               **{**decl, "axes": tuple(Axis(*a) for a in decl["axes"])})
+    ref = JSweep(factory=jax_scenario_factory("batched-serving"),
+                 **{**decl, "axes": tuple(JAxis(*a) for a in decl["axes"])})
     frame = run_sweep(sw, progress=None, vector_config=CPU)
+    want = jax_run_sweep(ref, progress=None, vector_config=JAX_REF)
     eng, vec = frame.rows
-    assert not eng.ok
-    assert eng.error.startswith("NotImplementedError: BatchedStubEngine")
-    assert "not ported yet" in eng.error
+    assert eng.ok and eng.error is None
+    assert eng.metrics["n"] > 0
+    assert json.dumps(eng.to_dict()) == json.dumps(want.rows[0].to_dict())
     assert vec.ok and vec.metrics["n"] > 0
 
 

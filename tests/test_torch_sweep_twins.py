@@ -9,6 +9,9 @@ reference scripts (``benchmarks/``), on the CPU.
   same shape buckets (one scan launch of 117 cells at full size), and
   without a card and without ``--device cpu`` it exits non-zero rather
   than running on the host.
+* The ``fig_batching`` twin declares the reference's grid (the
+  ``runtime`` axis over ``sim`` and ``engine``), gives its ``--quick``
+  frame row for row and passes its knee gate with the same knees.
 * The twins and ``chip_smoke.py`` import neither ``jax`` nor ``repro``.
 """
 from __future__ import annotations
@@ -75,6 +78,46 @@ def test_bench_vector_twin_grid_and_buckets(smoke, hist):
                                        JaxConfig()) == hist
 
 
+@pytest.mark.parametrize("quick", [True, False])
+def test_fig_batching_twin_declares_the_reference_grid(quick):
+    port, ref = _pair("fig_batching")
+    p, r = port.build_sweep(quick), ref.build_sweep(quick)
+    assert p.describe() == r.describe()
+    assert p.tasks() == r.tasks()
+    assert [port.point_qps(mb, f) for mb in port.MAX_BATCHES
+            for f in (0.3, 1.0, 1.3)] == \
+        [ref.point_qps(mb, f) for mb in ref.MAX_BATCHES
+         for f in (0.3, 1.0, 1.3)]
+
+
+def test_fig_batching_twin_quick_frame_and_gate_equal_reference(tmp_path):
+    """``--quick``: the frame equals the reference's row for row, on
+    ``sim`` and on the stub ``engine`` alike, and the knee gate passes
+    with the reference's knees."""
+    port, ref = _pair("fig_batching")
+    got = run_sweep(port.build_sweep(True), progress=None).raise_errors()
+    want = jax_run_sweep(ref.build_sweep(True), progress=None).raise_errors()
+    assert {r.params["runtime"] for r in got.rows} == {"sim", "engine"}
+    assert json.dumps([r.to_dict() for r in got.rows]) == \
+        json.dumps([r.to_dict() for r in want.rows])
+    outs = []
+    for script in (os.path.join("benchmarks", "torch_port",
+                                "fig_batching.py"),
+                   os.path.join("benchmarks", "fig_batching.py")):
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [os.path.join(REPO, "src"), REPO]))
+        out = subprocess.run([sys.executable, os.path.join(REPO, script),
+                              "--quick"], env=env, capture_output=True,
+                             text=True, timeout=300, cwd=tmp_path)
+        assert out.returncode == 0, out.stderr[-2000:]
+        line = out.stdout.strip().splitlines()[-1]
+        name, _, derived = line.split(",", 2)
+        assert name == "fig_batching"
+        outs.append((derived, out.stderr.strip().splitlines()))
+    assert outs[0] == outs[1]
+    assert "within_15pct=True" in outs[0][0]
+
+
 def _no_card_env() -> dict:
     """The environment of a run without a card: CUDA hidden."""
     return dict(os.environ, CUDA_VISIBLE_DEVICES="",
@@ -94,7 +137,8 @@ def test_bench_vector_twin_needs_a_card_or_device_cpu(tmp_path):
 
 
 def test_twins_and_chip_smoke_import_neither_jax_nor_repro():
-    twins = FIGURES + ["bench_vector", "run", "common", "_record"]
+    twins = FIGURES + ["fig_batching", "bench_vector", "run", "common",
+                       "_record"]
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"

@@ -308,15 +308,20 @@ def test_entry_point_defaults_pinned(capsys):
 
 
 def test_not_ported_surfaces_raise():
-    """What is still not ported raises: control on the engine runtime,
-    ``batched-serving`` with ``arch=``, and soft mode."""
+    """What is still not ported raises: soft mode.  Control on the
+    engine runtime and ``batched-serving`` with ``arch=`` are ported and
+    build: the flash crowd's runtime carries its controller and a
+    standby pool, the batched scenario its roofline service."""
+    from repro_torch.core.profiles import BatchedService
     from repro_torch.core.runtime import EngineRuntime
     from repro_torch.kernels import ops
     sc = tsc.get("flash-crowd-autoscale", duration=3.0)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        EngineRuntime.from_experiment(sc.compile(), [object()] * 6)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tsc.get("batched-serving", arch="phi3-mini-3.8b")
+    rt = EngineRuntime.from_experiment(sc.compile(), [object()] * 6)
+    assert rt._control.spec == sc.compile().control
+    assert [h.server_id for h in rt._alive] == [0, 1]
+    batched = tsc.get("batched-serving", arch="phi3-mini-3.8b")
+    assert batched.service_model == \
+        BatchedService.from_arch("phi3-mini-3.8b")
     with pytest.raises(NotImplementedError, match="soft mode"):
         ops.scalar_scan({"tau": 0.1}, (), ())
     # the simulator and the compiler's control pre-pass no longer raise
