@@ -16,18 +16,22 @@ import traceback
 
 
 def main() -> None:
-    from benchmarks.torch_port import (fig1_qps_latency, fig4_equivalence,
-                                       fig5_multiserver, fig6_interleaved,
-                                       fig7_dynamic_qps, fig8_balancing,
-                                       fig_batching, hedging)
+    from benchmarks.torch_port import (bench_plan, fig1_qps_latency,
+                                       fig4_equivalence, fig5_multiserver,
+                                       fig6_interleaved, fig7_dynamic_qps,
+                                       fig8_balancing, fig_batching, hedging)
     benches = [fig1_qps_latency, fig4_equivalence, fig5_multiserver,
                fig6_interleaved, fig7_dynamic_qps, fig8_balancing,
-               fig_batching, hedging]
+               fig_batching, hedging, bench_plan]
     print("name,us_per_call,derived")
     failures = 0
     for b in benches:
         try:
-            b.main()
+            rc = b.main()
+            # the figures return their derived metric; bench_plan its
+            # exit status
+            if isinstance(rc, int) and rc:
+                raise RuntimeError(f"exit status {rc}")
         except Exception:
             failures += 1
             name = b.__name__.split(".")[-1]

@@ -39,6 +39,18 @@ pre-pass shapes) and real-model serving of a dense attention model
    the process executor, started after the card is initialised (its
    workers come from a forkserver), whose frame must equal the serial
    one and whose vector rows must equal the CPU's;
+4d. runs the planner (``repro_torch.plan.run_plan``) on bench_plan's
+   FULL problem (steady/jsq at 2600 QPS, 12 s; 3 starts x 150 Adam
+   steps through the surrogate, then the exact probe ladder) on the card
+   and on the CPU: ``n_star``, the probe sequence and ``cell_evals``
+   equal, verified values within ``PLAN_VALUE_RTOL``, the continuous
+   capacity within ``PLAN_CAPACITY_TOL``, at most a tenth of the dense
+   grid's 312 cells, and one ``scalar_scan`` and one ``fused_quantiles``
+   launch a ladder grid; prints ``plan:`` lines with the walls;
+4e. runs a soft ``steady`` grid (8 s, seed 3, ``SOFT_REPS`` cells) on the
+   card and on the CPU: no kernel launched (soft consts take the plain
+   step), rows equal within ``SOFT_RTOL``; prints a ``soft:`` line with
+   the walls;
 5. runs phi3-mini-3.8b at full width and a depth of 2 layers on the CPU
    (plain versions) and on the card (kernels), from the same seeded
    weights: a 128-token prompt and 8 greedy tokens, equal tokens and
@@ -1267,6 +1279,125 @@ def run_sweep_phase(results, vector_kernels) -> tuple:
     return rec, total
 
 
+#: the soft phase's grid: ``steady`` (8 s, seed 3, the reference
+#: agreement test's operating point) x 13 reps, card against CPU
+SOFT_REPS = 13
+SOFT_RTOL = 1e-5
+#: the plan phase's card-vs-CPU bounds: continuous capacity (servers),
+#: verified values (relative), and the cell budget (the dense grid's
+#: cells over the bench's required 10x)
+PLAN_CAPACITY_TOL = 1e-2
+PLAN_VALUE_RTOL = 1e-6
+
+
+def run_plan_phase(vector_kernels) -> tuple:
+    """bench_plan's FULL problem through ``run_plan`` on the card and on
+    the CPU (step 4d); -> (record, the card run's launches)."""
+    from benchmarks.torch_port.bench_plan import FULL, SEED, _overrides
+    from repro_torch.plan import PlanSpec, run_plan
+    from repro_torch.vector import VectorConfig
+    spec = PlanSpec(scenario="steady", objective="p99", slo=FULL["slo"],
+                    overrides=_overrides(FULL), steps=FULL["steps"],
+                    starts=FULL["starts"], samples=FULL["samples"],
+                    probe_reps=FULL["probe_reps"], reps=FULL["reps"],
+                    seed=SEED)
+    rec, runs = {}, {}
+    for dev in ("cuda", "cpu"):
+        for k in vector_kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[dev] = run_plan(spec, vector_config=VectorConfig(device=dev))
+        wall = time.perf_counter() - t0
+        r = runs[dev]
+        rec[dev] = {"wall_s": wall, "capacity": r.params["capacity"],
+                    "n_star": r.n_star, "cell_evals": r.cell_evals,
+                    "probes": [(p["n"], p["meets"]) for p in r.probes],
+                    "verified_mean": r.verified["mean"],
+                    "launches": {k.__name__: k.launches
+                                 for k in vector_kernels}}
+        print(f"plan: {dev} wall {wall:.3f} s, capacity "
+              f"{r.params['capacity']:.6f}, n_star {r.n_star}, probes "
+              f"{rec[dev]['probes']}, {r.cell_evals} exact cells, p99 "
+              f"{r.verified['mean']:.6g}, launches "
+              f"{rec[dev]['launches']}", flush=True)
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    grid_cells = FULL["n_grid"] * FULL["reps"]
+    if gpu.n_star != cpu.n_star or \
+            rec["cuda"]["probes"] != rec["cpu"]["probes"]:
+        fail(f"plan: card n_star {gpu.n_star} probes "
+             f"{rec['cuda']['probes']} vs CPU {cpu.n_star} "
+             f"{rec['cpu']['probes']}")
+    if not np.allclose(gpu.verified["values"], cpu.verified["values"],
+                       rtol=PLAN_VALUE_RTOL, atol=0.0):
+        fail(f"plan: verified values {gpu.verified['values']} vs CPU "
+             f"{cpu.verified['values']}")
+    gap = abs(gpu.params["capacity"] - cpu.params["capacity"])
+    if gap > PLAN_CAPACITY_TOL:
+        fail(f"plan: continuous capacity card vs CPU differs by {gap}")
+    if gpu.cell_evals * 10 > grid_cells:
+        fail(f"plan: {gpu.cell_evals} exact cells, more than "
+             f"{grid_cells}/10")
+    n = rec["cuda"]["launches"]
+    want = len(gpu.probes) + 1          # one grid a probe + the final one
+    if n["scalar_scan"] != want or n["fused_quantiles"] != want \
+            or n["batched_scan"]:
+        fail(f"plan: {want} scalar_scan and fused_quantiles launches "
+             f"expected (one a ladder grid), got {n}")
+    rec["capacity_gap"] = gap
+    rec["cell_speedup"] = grid_cells / gpu.cell_evals
+    print(f"plan: card equals CPU (n_star, probes, verified values; "
+          f"capacity gap {gap:.3g}); {gpu.cell_evals} cells vs "
+          f"{grid_cells} of the dense grid ({rec['cell_speedup']:.2f}x)",
+          flush=True)
+    return rec, n
+
+
+def run_soft_phase(vector_kernels) -> dict:
+    """A soft ``steady`` grid on the card against the CPU (step 4e): the
+    plain step with the smoothed water-fill and the soft quantile head,
+    no kernel launch."""
+    from repro_torch.scenarios import get
+    from repro_torch.sweep.spec import spawn_seed
+    from repro_torch.vector import VectorConfig, compile_experiment, run_cells
+    prog = compile_experiment(get("steady", duration=8.0, seed=3).compile())
+    progs = [prog] * SOFT_REPS
+    seeds = [(spawn_seed(3, 0, rep), rep) for rep in range(SOFT_REPS)]
+    rec, rows = {}, {}
+    for dev in ("cuda", "cpu"):
+        for k in vector_kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows[dev] = run_cells(progs, seeds,
+                              VectorConfig(device=dev, soft=True))
+        rec[dev] = {"wall_s": time.perf_counter() - t0,
+                    "launches": {k.__name__: k.launches
+                                 for k in vector_kernels}}
+    if any(rec["cuda"]["launches"].values()):
+        fail(f"soft: a kernel was launched on soft consts: "
+             f"{rec['cuda']['launches']}")
+    worst = 0.0
+    for i, (g, c) in enumerate(zip(rows["cuda"], rows["cpu"])):
+        if g.n != c.n or g.dropped != c.dropped:
+            fail(f"soft cell {i}: n/dropped {g.n}/{g.dropped} vs CPU "
+                 f"{c.n}/{c.dropped}")
+        for m in ("mean", "p50", "p95", "p99"):
+            a, b = getattr(g, m), getattr(c, m)
+            if not (math.isfinite(a) and math.isclose(a, b,
+                                                      rel_tol=SOFT_RTOL)):
+                fail(f"soft cell {i} {m}: card {a!r} vs CPU {b!r}")
+            worst = max(worst, abs(a - b) / abs(b))
+    rec["cells"] = SOFT_REPS
+    rec["max_rel_diff"] = worst
+    print(f"soft: steady 8 s x {SOFT_REPS} cells, card "
+          f"{rec['cuda']['wall_s']:.3f} s, CPU {rec['cpu']['wall_s']:.3f} "
+          f"s; rows equal within rtol "
+          f"{SOFT_RTOL} (max {worst:.3g}); p99 {rows['cuda'][0].p99:.6g}",
+          flush=True)
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a "
@@ -1398,6 +1529,14 @@ def main() -> int:
     for name in ("scalar_scan", "fused_quantiles"):
         launches[name] += sweep_launches[name]
     record["sweep_launches"] = sweep_launches
+
+    # ---- main path 1d, the planner: surrogate and exact ladder -------------
+    record["plan"], plan_launches = run_plan_phase(vector_kernels)
+    for name in ("scalar_scan", "fused_quantiles"):
+        launches[name] += plan_launches[name]
+
+    # ---- 1e, soft mode: the plain step on the card --------------------------
+    record["soft"] = run_soft_phase(vector_kernels)
 
     # ---- full width, reduced depth: the card against the CPU ---------------
     record["full_width"] = check_full_width(device)

@@ -2,7 +2,12 @@
 
 A CUDA tensor launches the hand-written kernel (or the wrapper raises);
 a CPU tensor takes the kernel's plain PyTorch version in ``ref``.
-There is no switch that sends a CUDA tensor down the plain path.
+There is no switch that sends a CUDA tensor down the plain path, and no
+fallback when a build or launch fails.  The one routing rule besides
+the device: scan consts that carry a soft-mode ``tau`` run the plain
+step with the smoothed water-fill on the grid's own device, the card
+included — the reference pins soft consts to its jnp step
+(``repro/kernels/ops.py``), and no kernel implements them.
 """
 from __future__ import annotations
 
@@ -22,24 +27,22 @@ def _on_cuda(x: torch.Tensor) -> bool:
     return False
 
 
-def _hard(consts: dict) -> None:
-    if "tau" in consts:
-        raise NotImplementedError("soft mode (consts 'tau') is not ported "
-                                  "yet")
+def _scan_kernel(consts: dict, x: torch.Tensor) -> bool:
+    """True where the scan kernel runs: hard consts on a CUDA tensor.
+    Soft consts (``tau``) take the plain step wherever ``x`` lies."""
+    return _on_cuda(x) and "tau" not in consts
 
 
 def scalar_scan(consts: dict, carry: tuple, xs: tuple):
     """Scalar-family slot scan over every slot of ``xs``."""
-    _hard(consts)
-    if _on_cuda(carry[0]):
+    if _scan_kernel(consts, carry[0]):
         return vector_step.scalar_scan(consts, carry, xs)
     return ref.scalar_scan(consts, carry, xs)
 
 
 def batched_scan(consts: dict, carry: tuple, xs: tuple):
     """Batched-family (roofline) slot scan over every slot of ``xs``."""
-    _hard(consts)
-    if _on_cuda(carry[0]):
+    if _scan_kernel(consts, carry[0]):
         return vector_step.batched_scan(consts, carry, xs)
     return ref.batched_scan(consts, carry, xs)
 

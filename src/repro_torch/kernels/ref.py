@@ -13,8 +13,10 @@ oracles) and the Mamba-2 SSD scan (``ssd_naive``, ``ssd_chunked``).
 
 Shapes follow the scan: consts ``c``/``fail_slot`` ``[C, S]`` (and
 ``tm``/``tc``/``new_mean`` ``[C, 1]`` for the batched family), ``dt`` a
-Python float; carry ``[C, S]`` lanes plus ``drops [C]``; per-slot xs
-with a 0-d int slot index ``t`` first.
+Python float, and in soft mode ``tau`` a Python float (the steps then
+take ``soft_waterfill``, the reference's ``repro.vector.soft`` relaxation,
+which ``repro_torch.vector.soft`` re-exports); carry ``[C, S]`` lanes plus
+``drops [C]``; per-slot xs with a 0-d int slot index ``t`` first.
 
 Every sum over server lanes runs left to right in lane order
 (``_lane_sum``): that is the order of XLA's row reduction on the CPU
@@ -25,6 +27,8 @@ copies of ``_BIG`` round, so the fill is not exactly 0 (the JAX
 reference's behaviour, reproduced here).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -65,12 +69,91 @@ def waterfill(U_eff: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
     return torch.clamp(L - U_eff, min=0.0)
 
 
-def scalar_step(consts: dict, carry: tuple, xs: tuple):
+def scalar_like(x: torch.Tensor, v) -> torch.Tensor:
+    """``v`` as a 0-d tensor of ``x``'s dtype and device (a Python
+    scalar takes ``x``'s dtype, as a weakly typed scalar does in jnp),
+    filled on the device rather than copied from the host."""
+    return x.new_full((), v)
+
+
+def abs_jnp(x: torch.Tensor) -> torch.Tensor:
+    """``|x|`` whose derivative at 0 is 1, as ``jnp.abs``'s (``torch.abs``
+    gives 0 there, which would zero a sigmoid's slope at its center)."""
+    return torch.where(x >= 0, x, -x)
+
+
+def stable_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """Overflow-safe logistic; saturates to exact 0.0/1.0 so masked
+    (``_BIG``) operands drop out bit-exactly."""
+    z = torch.exp(-abs_jnp(x))
+    return torch.where(x >= 0, 1.0 / (1.0 + z), z / (1.0 + z))
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """Overflow-safe ``log(1 + exp(x))`` (= x for large x, 0 for very
+    negative x)."""
+    return torch.maximum(x, scalar_like(x, 0.0)) \
+        + torch.log1p(torch.exp(-abs_jnp(x)))
+
+
+def soft_waterfill(U_eff: torch.Tensor, total: torch.Tensor,
+                   tau: float) -> torch.Tensor:
+    """Temperature-controlled relaxation of the water-fill: distribute
+    ``total`` [C] over the least-loaded lanes of ``U_eff`` [C, S]
+    (``repro.vector.soft.soft_waterfill``).
+
+    The active-set membership test (``U_i <= U_k``) and the final
+    ``relu(L - U)`` become sigmoids/softplus at a temperature scaled by
+    the per-cell operand magnitude, and the level becomes a softmin
+    over the lane proposals.  Fills are renormalized so the slot
+    conserves work mass at any temperature.  Masked lanes (``_BIG``)
+    saturate every sigmoid and contribute exact zeros."""
+    zero = U_eff.new_zeros(())
+    fin = U_eff < (_BIG * 0.5)
+    n_fin = torch.where(fin, U_eff.new_ones(()), zero).sum(dim=-1)
+    u_fin = torch.where(fin, U_eff, zero)
+    u_sum = u_fin.sum(dim=-1)
+    # operand magnitude: mean finite backlog + the incoming work itself
+    scale = (u_sum + total) / torch.clamp(n_fin, min=1.0) + _EPS
+    t = tau * scale
+    mine = U_eff[..., :, None]
+    other = U_eff[..., None, :]
+    le = stable_sigmoid((mine - other) / t[..., None, None])
+    cnt = le.sum(dim=-1)
+    wsum = (le * u_fin[..., None, :]).sum(dim=-1)
+    level = (total[..., None] + wsum) \
+        / torch.maximum(cnt, scalar_like(cnt, 0.5))
+    # softmin over lane proposals, anchored at the hard min for safety
+    lmin = level.amin(dim=-1, keepdim=True)
+    w_prop = torch.exp(-(level - lmin) / t[..., None])
+    wp_sum = w_prop.sum(dim=-1, keepdim=True)
+    L = (level * w_prop).sum(dim=-1, keepdim=True) \
+        / torch.maximum(wp_sum, scalar_like(wp_sum, _EPS))
+    fill = softplus((L - U_eff) / t[..., None]) * t[..., None]
+    # conserve the slot's work mass exactly at any temperature
+    fsum = fill.sum(dim=-1, keepdim=True)
+    return fill * (total[..., None]
+                   / torch.maximum(fsum, scalar_like(fsum, _EPS)))
+
+
+def _waterfill_of(consts: dict):
+    """The step's water-fill: the hard level-fill, or the soft mode's
+    temperature-controlled relaxation when the consts carry ``tau``
+    (``repro.vector.runtime._make_waterfill``)."""
+    tau = consts.get("tau")
+    if tau is None:
+        return waterfill
+    return functools.partial(soft_waterfill, tau=tau)
+
+
+def scalar_step(consts: dict, carry: tuple, xs: tuple, wfill=None):
     """One slot of the scalar family -> (carry, ys).
 
     carry ``(U, Q [C,S], drops [C])``; xs ``(t, Nc, Wc, Nf [C], Wf [C],
     act, acc, spd)``; ys ``(wait_U, wait_free [C], n_served, drained,
-    Q)``."""
+    Q)``.  ``wfill`` is the consts' water-fill, when the caller (a scan)
+    has picked it once for every slot."""
+    wfill = wfill or _waterfill_of(consts)
     c, fail_slot, dt = consts["c"], consts["fail_slot"], consts["dt"]
     U, Q, drops = carry
     t, Nc, Wc, Nf, Wf, act, acc, spd = xs
@@ -87,7 +170,7 @@ def scalar_step(consts: dict, carry: tuple, xs: tuple):
     Nf = torch.where(ok, Nf, zero)
     big = U.new_full((), _BIG)
     U_eff = torch.where(acc > 0, U, big)
-    w_free = waterfill(U_eff, Wf)
+    w_free = wfill(U_eff, Wf)
     share = w_free / torch.clamp(_lane_sum(w_free)[..., None], min=_EPS)
     n_free = Nf[..., None] * share
     W_arr = Wc + w_free
@@ -107,12 +190,14 @@ def scalar_step(consts: dict, carry: tuple, xs: tuple):
     return (U, Q, drops), (wait_U, wait_free, n_served, drained, Q)
 
 
-def batched_step(consts: dict, carry: tuple, xs: tuple):
+def batched_step(consts: dict, carry: tuple, xs: tuple, wfill=None):
     """One slot of the batched (roofline) family -> (carry, ys).
 
     carry ``(P, T, L [C,S], drops [C])``; xs ``(t, Nc, Wpc, Wtc, Nf,
     Wpf, Wtf [C], act, acc, spd)``; ys ``(wait_adm, st_hat, N_arr,
-    n_served, busy_used, L, tok_served)``."""
+    n_served, busy_used, L, tok_served)``; ``wfill`` as in
+    ``scalar_step``."""
+    wfill = wfill or _waterfill_of(consts)
     B, fail_slot, dt = consts["c"], consts["fail_slot"], consts["dt"]
     tm, tc, new_mean = consts["tm"], consts["tc"], consts["new_mean"]
     P, T, L, drops = carry
@@ -129,7 +214,7 @@ def batched_step(consts: dict, carry: tuple, xs: tuple):
     drops = drops + torch.where(ok, zero, Nf)
     Nf = torch.where(ok, Nf, zero)
     L_eff = torch.where(acc > 0, L, P.new_full((), _BIG))
-    n_free = waterfill(L_eff, Nf)
+    n_free = wfill(L_eff, Nf)
     share = n_free / torch.clamp(_lane_sum(n_free)[..., None], min=_EPS)
     Wp_arr = Wpc + Wpf[..., None] * share
     Wt_arr = Wtc + Wtf[..., None] * share
@@ -163,9 +248,10 @@ def _scan(step, consts: dict, carry: tuple, xs: tuple):
     """Advance ``step`` over every slot of ``xs`` (each ``[T, ...]``,
     the int32 global slot index ``xs[0]`` first) -> (carry, ys stacked
     ``[T, ...]``)."""
+    wfill = _waterfill_of(consts)
     outs = None
     for k in range(xs[0].shape[0]):
-        carry, ys = step(consts, carry, tuple(x[k] for x in xs))
+        carry, ys = step(consts, carry, tuple(x[k] for x in xs), wfill)
         if outs is None:
             outs = tuple(y.new_empty((xs[0].shape[0],) + y.shape)
                          for y in ys)

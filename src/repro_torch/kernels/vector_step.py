@@ -103,6 +103,14 @@ def _fast_div(a: torch.Tensor, b: torch.Tensor) -> tuple:
     return q, bad
 
 
+def _hard_consts(consts: dict) -> None:
+    """The kernels implement the hard step only: soft-mode consts
+    (``tau``) belong to the plain step (``kernels.ops`` routes them)."""
+    if "tau" in consts:
+        raise ValueError("soft-mode consts (tau): the scan kernels "
+                         "implement the hard step only")
+
+
 def _shape(carry0: torch.Tensor, t_idx: torch.Tensor) -> tuple:
     if carry0.dim() != 2 or t_idx.dim() != 1:
         raise ValueError("expected carry lanes [C, S] and slot index [T]")
@@ -121,6 +129,7 @@ def scalar_scan(consts: dict, carry: tuple, xs: tuple):
     ``(U, Q [C, S], drops [C])``; xs ``(t [T] i32, Nc, Wc [T, C, S],
     Nf, Wf [T, C], act, acc, spd [T, C, S])`` -> (carry, ys ``(wait_U,
     wait_free [T, C], n_served, drained, Q)``)."""
+    _hard_consts(consts)
     U, Q, drops = carry
     t_idx, Nc, Wc, Nf, Wf, act, acc, spd = xs
     C, S, T = _shape(U, t_idx)
@@ -161,6 +170,7 @@ def batched_scan(consts: dict, carry: tuple, xs: tuple):
     [T, C, S], Nf, Wpf, Wtf [T, C], act, acc, spd [T, C, S])`` ->
     (carry, ys ``(wait_adm, st_hat, N_arr, n_served, busy_used, L,
     tok_served)``, each ``[T, C, S]``)."""
+    _hard_consts(consts)
     P, Tk, L, drops = carry
     t_idx, Nc, Wpc, Wtc, Nf, Wpf, Wtf, act, acc, spd = xs
     C, S, T = _shape(P, t_idx)

@@ -24,8 +24,9 @@ bit-identical on ``sim`` and ``engine``, and on ``vector`` within the
 vector runtime's parity with the JAX package.  Where the port's
 defaults differ: the vector grid runs on the card unless
 ``vector_config`` asks for the CPU, and the CLI's ``--runtime`` defaults
-to ``vector`` (the reference's to ``sim``).  Not ported yet: the
-planner (``mode="optimize"``) and the result cache (``cache=``).
+to ``vector`` (the reference's to ``sim``).  A ``mode="optimize"``
+sweep runs the gradient planner (``repro_torch.plan``).  Not ported
+yet: the result cache (``cache=``).
 
     PYTHONPATH=src python -m repro_torch.sweep --list
     PYTHONPATH=src python -m repro_torch.sweep steady --axis qps=300,600,900 \

@@ -24,8 +24,9 @@ vector grid runs on the CUDA card unless ``--device cpu`` asks for the
 kernels' plain PyTorch versions on the CPU (in place of the reference's
 ``--vector-impl``/``--vector-backend``/``--vector-devices``).  A
 ``--file`` declaration, and ``--smoke``, still mean ``sim`` where they
-name no runtime, as in the reference.  Not ported yet: the planner's
-``optimize`` declarations and the result-cache flags.
+name no runtime, as in the reference.  An ``optimize`` declaration runs
+the gradient planner on ``--device``.  Not ported yet: the result-cache
+flags.
 
 ``--file`` runs a JSON (or YAML, when PyYAML is importable) sweep
 declaration::
@@ -102,8 +103,7 @@ def _sweep_from_decl(decl: dict) -> Sweep:
     optimize = decl.get("optimize")
     if optimize is not None:
         # planner declaration: {"scenario": ..., "optimize": {"slo": ...,
-        # "params": {"capacity": [4, 1, 24]}, ...}, "fixed": {...}};
-        # validated here, refused by run_sweep (not ported yet)
+        # "params": {"capacity": [4, 1, 24]}, ...}, "fixed": {...}}
         return Sweep(name=decl.get("name", scenario), factory=None,
                      mode="optimize",
                      optimize={"scenario": scenario, **optimize},
@@ -125,7 +125,23 @@ def _sweep_from_decl(decl: dict) -> Sweep:
                  runtime=decl.get("runtime", "sim"))
 
 
+def _print_plan(frame) -> None:
+    plan = frame.spec["plan"]
+    print(f"plan={frame.name} objective={plan['spec']['objective']} "
+          f"target={plan['spec']['target']}")
+    print(f"continuous optimum: {plan['params']}")
+    v = plan.get("verified")
+    if v is not None:
+        print(f"verified fleet: n={plan['n_star']} "
+              f"{v['metric']}={v['mean']:.4g} +- {v['ci95']:.4g} "
+              f"({'feasible' if plan['feasible'] else 'INFEASIBLE'}; "
+              f"{plan['cell_evals']} exact cells)")
+
+
 def _print_aggregate(frame) -> None:
+    if "plan" in frame.spec:
+        _print_plan(frame)
+        return
     metrics = [m for m in frame.spec.get("metrics", ())
                if m not in ("n",)]
     headline = "p99" if "p99" in metrics else (metrics[0] if metrics else None)

@@ -1,8 +1,9 @@
 """Sweep execution: serial and process-parallel behind one interface.
 
 Copy of ``repro.sweep.executor``, with the vector grid path on the
-card.  Not ported yet: the planner's ``mode="optimize"`` and the result
-cache (``cache=``), which raise ``NotImplementedError``.
+card.  A ``mode="optimize"`` sweep runs the gradient planner
+(``repro_torch.plan.run_plan_sweep``).  Not ported yet: the result
+cache (``cache=``), which raises ``NotImplementedError``.
 
 ``run_sweep(sweep)`` expands the spec into (point, repetition) tasks,
 executes each as an independent deterministic run, and assembles a
@@ -296,20 +297,23 @@ def run_sweep(sweep: Sweep, executor: str = "serial",
     propagation semantics.  ``vector_config`` (a
     ``repro_torch.vector.VectorConfig``) picks where the vector grid
     runs: the card by default, the CPU with ``device="cpu"``; its other
-    knobs are bit-preserving, so it cannot change rows.
+    knobs are bit-preserving, so it cannot change rows.  A
+    ``mode="optimize"`` sweep runs the gradient planner on the same
+    device and returns its phase-tagged frame.
 
     Not ported yet, and raising ``NotImplementedError``: ``cache`` (the
-    reference's ``repro.cache.ResultCache``) and ``mode="optimize"``
-    (the reference's gradient planner).
+    reference's ``repro.cache.ResultCache``).
     """
     if cache is not None:
         raise NotImplementedError("run_sweep(cache=...): the result cache "
                                   "is not ported yet (ROADMAP Queue A "
                                   "item 5)")
     if sweep.mode == "optimize":
-        raise NotImplementedError("Sweep(mode='optimize'): the planner "
-                                  "(repro.plan) is not ported yet "
-                                  "(ROADMAP Queue A item 4)")
+        # gradient-planner entry point: the search is an optimizer loop
+        # over the smoothed vector surrogate, not a task grid
+        from repro_torch.plan import run_plan_sweep
+        return run_plan_sweep(sweep, progress=progress,
+                              vector_config=vector_config)
     tasks = sweep.tasks()
     total = len(tasks)
     rows: list = [None] * total

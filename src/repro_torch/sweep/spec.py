@@ -143,10 +143,9 @@ class Sweep:
     zips equal-length axes, ``"points"`` uses the explicit ``points``
     dicts.  ``fixed`` parameters merge into every point.
 
-    ``mode="optimize"`` is the gradient-planner entry point of the
-    reference (``repro.plan.run_plan_sweep``).  The spec validates as
-    there (an ``optimize`` block, no axes or points), but the planner
-    is not ported yet: ``run_sweep`` raises ``NotImplementedError``.
+    ``mode="optimize"`` is the gradient-planner entry point
+    (``repro_torch.plan.run_plan_sweep``): an ``optimize`` block, no
+    axes or points.
 
     ``runtime`` picks the execution backend: ``"sim"`` (virtual-time
     simulator, the default, as in the reference), ``"engine"``
@@ -174,7 +173,6 @@ class Sweep:
     runtime: str = "sim"                # sim | engine (stub replicas)
                                         # | vector (the card's grid)
     optimize: Optional[dict] = None     # mode="optimize": planner knobs
-                                        # (not ported yet)
 
     def __post_init__(self):
         self.axes = _as_axes(self.axes)

@@ -16,6 +16,17 @@ queue length)`` with axes ``[cell, server]`` advances through
 * requests are sampled and censored on the host, and p50/p95/p99 of
   every cell of a chunk come from one fused quantile launch.
 
+``VectorConfig.soft`` is the reference's differentiable mode: the scan
+consts carry ``tau``, which sends the step to its plain PyTorch version
+with the smoothed water-fill (``kernels.ref.soft_waterfill``) on the
+grid's own device, the card included — the reference pins soft consts
+to its jnp step too, and no kernel implements them.  The host terms
+take the smoothed Erlang-C and utilization ceiling, the sampler a
+smoothed queue indicator on the same draws, every sample a smooth
+censor keep-weight, and the quantiles come from ``soft_quantiles`` over
+the full weighted sample.  A soft grid runs one eager step per slot:
+slow, and meant for diagnostics.
+
 Device work is f32 (consts, carry and xs cast as the reference casts
 them; ``fail_slot`` and the slot index int32) and outputs are widened to
 f64 on the host.  Each chunk's outputs come back in one device-to-host
@@ -33,12 +44,20 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.vector import soft as _soft
 from repro_torch.vector.compile import VectorProgram, compile_experiment
 
 _BIG = 1e18
 _EPS = 1e-12
 #: offered load above which the stationary wait is diffusion-bounded
 _NEAR_CRITICAL = 0.9
+
+
+#: soft mode's temperature (relative) and its quantile head's bandwidth,
+#: as a fraction of the effective count (the reference ``VectorConfig``'s
+#: ``tau`` and ``band_frac`` defaults)
+SOFT_TAU = 0.05
+SOFT_BAND_FRAC = 5e-4
 
 
 @dataclass
@@ -51,6 +70,10 @@ class VectorConfig:
                                     # (sampling, quantiles) of chunk k
     device: str = "cuda"            # "cuda" (the card) or "cpu" (the
                                     # kernels' plain PyTorch versions)
+    soft: bool = False              # differentiable mode: smoothed
+                                    # water-filling / Erlang-C / censoring
+                                    # and the soft quantile head (the
+                                    # plain step, on ``device``)
 
 
 # ---------------------------------------------------------------------------
@@ -295,6 +318,8 @@ def _launch_family(progs: list, seeds: list, batched: bool,
     rngs = [_cell_rng(s, st) for s, st in seeds]
     draws = [_draw_cell(p, r) for p, r in zip(progs, rngs)]
     consts, carry, xs = scan_inputs(progs, draws, batched, shape, device)
+    if cfg.soft:
+        consts["tau"] = SOFT_TAU
     scan = ops.batched_scan if batched else ops.scalar_scan
     out_carry, ys = scan(consts, carry, xs)
     # ONE device->host copy for the whole chunk
@@ -337,8 +362,13 @@ def _launch_family(progs: list, seeds: list, batched: bool,
                            lam_w / np.maximum(c * spd, _EPS), 0.0)
         lgamma_c = _lgamma(c)
         cmax = int(c.max()) if c.size else 1
-        aux["pC"] = _erlang_c(c[None], lgamma_c[None], rho_det, cmax)
-        headroom = 1.0 - np.clip(rho_det, 0.0, 0.999)
+        if cfg.soft:
+            aux["pC"] = _soft.soft_erlang_c(np, c[None].astype(float),
+                                            rho_det, cmax, SOFT_TAU)
+            headroom = 1.0 - _soft.smooth_rho(np, rho_det, SOFT_TAU)
+        else:
+            aux["pC"] = _erlang_c(c[None], lgamma_c[None], rho_det, cmax)
+            headroom = 1.0 - np.clip(rho_det, 0.0, 0.999)
         # conditional wait given queueing: residual service work over
         # the free capacity (exact Pollaczek-Khinchine mean for c=1),
         # bounded near/above criticality by the diffusion growth law
@@ -367,9 +397,15 @@ def _launch_family(progs: list, seeds: list, batched: bool,
                             work_rate / np.maximum(cap_pool, _EPS), 0.0)
         c_pool = np.minimum(np.maximum((acc * c[None]).sum(axis=-1), 1.0),
                             64.0)
-        aux["pC_free"] = _erlang_c(c_pool, _lgamma(c_pool), rho_pool,
-                                   int(c_pool.max()))
-        headroom_f = 1.0 - np.clip(rho_pool, 0.0, 0.999)
+        if cfg.soft:
+            aux["pC_free"] = _soft.soft_erlang_c(np, c_pool, rho_pool,
+                                                 int(c_pool.max()),
+                                                 SOFT_TAU)
+            headroom_f = 1.0 - _soft.smooth_rho(np, rho_pool, SOFT_TAU)
+        else:
+            aux["pC_free"] = _erlang_c(c_pool, _lgamma(c_pool), rho_pool,
+                                       int(c_pool.max()))
+            headroom_f = 1.0 - np.clip(rho_pool, 0.0, 0.999)
         w_stat_f = resid_bar[None] / np.maximum(cap_pool * headroom_f,
                                                 _EPS)
         lam_pool = rho_pool * cap_pool / np.maximum(m_bar[None], _EPS)
@@ -422,8 +458,13 @@ def _finish_family(state: dict) -> list[VectorResult]:
     cells = [_sample_cell(progs[i], rngs[i], i, batched, carry, outs, aux,
                           draws[i], cfg)
              for i in range(state["C"])]
-    quants = _grid_quantiles([cell["lat"] for cell in cells],
-                             state["device"])
+    if cfg.soft:
+        quants = _soft_grid_quantiles([cell["lat_all"] for cell in cells],
+                                      [cell["w_all"] for cell in cells],
+                                      state["device"])
+    else:
+        quants = _grid_quantiles([cell["lat"] for cell in cells],
+                                 state["device"])
     return [_finish_cell(progs[i], batched, cells[i], quants[i])
             for i in range(state["C"])]
 
@@ -489,9 +530,14 @@ def _sample_cell(prog: VectorProgram, rng: np.random.Generator, i: int,
             # wait = inherited backlog (always, PASTA) + the stationary
             # within-slot queue: Bernoulli(Erlang-C) x Exp(conditional)
             pC_i = np.where(is_free, pC_f[ts], pC[ts, ss])
+            # Soft mode reuses the SAME uniform/exponential draws and
+            # only smooths the indicator (reparameterization)
             u_q = rng.random(K)
             e_q = rng.standard_exponential(K)
-            queued = u_q < pC_i
+            if cfg.soft:
+                queued = _soft.stable_sigmoid(np, (pC_i - u_q) / SOFT_TAU)
+            else:
+                queued = u_q < pC_i
             station = queued * e_q \
                 * np.where(is_free, w_cond_f[ts], w_cond[ts, ss])
             lat = np.where(is_free, wait_free[ts], wait_U[ts, ss]) \
@@ -515,7 +561,14 @@ def _sample_cell(prog: VectorProgram, rng: np.random.Generator, i: int,
         # censor like the event engine's recorder: completions past the
         # horizon are never recorded, and a request caught on a failing
         # server (arrived in its fail slot, or completing after the fail
-        # instant) is lost
+        # instant) is lost.  Soft mode additionally keeps the FULL
+        # sample with smooth keep-weights for the soft quantile head
+        # (the stored samples stay hard-censored for telemetry).
+        if cfg.soft:
+            lat_all = lat
+            w_all = _soft.censor_weight(np, centers[ts], completion,
+                                        prog.duration, fail_t,
+                                        80.0 * dt * SOFT_TAU)
         keep = (completion <= prog.duration) & (centers[ts] < fail_t) \
             & (completion <= fail_t)
         lat = lat[keep]
@@ -523,10 +576,16 @@ def _sample_cell(prog: VectorProgram, rng: np.random.Generator, i: int,
     else:
         lat = np.empty(0)
         completion = np.empty(0)
+        lat_all = np.empty(0)
+        w_all = np.empty(0)
 
-    return {"lat": lat, "completion": completion, "n_served": n_served,
-            "drained": drained, "Qs": Qs, "drops": drops,
-            "tok_served": tok_served if batched else None}
+    out = {"lat": lat, "completion": completion, "n_served": n_served,
+           "drained": drained, "Qs": Qs, "drops": drops,
+           "tok_served": tok_served if batched else None}
+    if cfg.soft:
+        out["lat_all"] = lat_all
+        out["w_all"] = w_all
+    return out
 
 
 def _grid_quantiles(lats: list, device: torch.device) -> np.ndarray:
@@ -539,6 +598,24 @@ def _grid_quantiles(lats: list, device: torch.device) -> np.ndarray:
         return np.full((len(lats), 3), float("nan"))
     out = ops.fused_quantiles(torch.from_numpy(mat).to(device),
                               torch.from_numpy(counts).to(device))
+    return out.cpu().numpy().astype(np.float64)
+
+
+def _soft_grid_quantiles(lats: list, weights: list,
+                         device: torch.device) -> np.ndarray:
+    """Soft mode's head: p50/p95/p99 of every cell's full sample under
+    its censor keep-weights -> [C, 3] f64, one ``soft_quantiles`` call
+    over a [C, K] f32 matrix (+inf samples at zero weight past each
+    cell's count)."""
+    mat, _ = _quantile_matrix(lats)
+    if mat is None:
+        return np.full((len(lats), 3), float("nan"))
+    wmat = np.zeros(mat.shape, np.float32)
+    for i, w in enumerate(weights):
+        wmat[i, :w.size] = w
+    out = _soft.soft_quantiles(torch.from_numpy(mat).to(device),
+                               torch.from_numpy(wmat).to(device),
+                               band_frac=SOFT_BAND_FRAC)
     return out.cpu().numpy().astype(np.float64)
 
 

@@ -11,7 +11,8 @@ on the CPU, against the JAX package's.
   ``device="cpu"`` within rtol 1e-6 of JAX ``impl="ref"`` (``n`` within
   1, ``dropped`` equal; observed bit-identical); ``run_repeated``
   bit-identical, failures included.
-* What is not ported raises, loudly: ``cache=`` and ``mode="optimize"``;
+* What is not ported raises, loudly: ``cache=``, also on a
+  ``mode="optimize"`` sweep;
   a ``batched-serving`` point on the engine runtime is an ordinary row,
   equal to the reference's.
 * The CLI in a subprocess: ``--smoke`` and a positional vector sweep on
@@ -453,8 +454,8 @@ def test_not_ported_surfaces_raise():
         run_sweep(_grid_sweep(), progress=None, cache=object())
     opt = Sweep(name="opt", factory=None, mode="optimize",
                 optimize={"scenario": "steady", "slo": 0.01})
-    with pytest.raises(NotImplementedError, match="item 4"):
-        run_sweep(opt, progress=None)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        run_sweep(opt, progress=None, cache=object())
     # the optimize spec validates as the reference's does
     with pytest.raises(ValueError, match="optimize block"):
         Sweep(name="opt", factory=None, mode="optimize")

@@ -9,6 +9,14 @@ reference scripts (``benchmarks/``), on the CPU.
   same shape buckets (one scan launch of 117 cells at full size), and
   without a card and without ``--device cpu`` it exits non-zero rather
   than running on the host.
+* The ``bench_plan`` twin poses the reference's FULL and SMOKE
+  problems; its ``--smoke --device cpu --check`` run passes every gate
+  and gives the reference twin's smoke answers (its dense grid and its
+  planner, run in-process here because the reference script's own
+  gradient check needs ``jax.experimental.enable_x64``): the grid's
+  optimum and p99 means (rtol 1e-6), ``n_star``, the probe sequence
+  and ``cell_evals``.  Without a card and without ``--device cpu`` it
+  exits 2.
 * The ``fig_batching`` twin declares the reference's grid (the
   ``runtime`` axis over ``sim`` and ``engine``), gives its ``--quick``
   frame row for row and passes its knee gate with the same knees.
@@ -22,6 +30,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 pytest.importorskip("jax")
@@ -136,9 +145,58 @@ def test_bench_vector_twin_needs_a_card_or_device_cpu(tmp_path):
     assert "serial event engine" not in out.stderr
 
 
+def test_bench_plan_twin_poses_the_reference_problems():
+    port, ref = _pair("bench_plan")
+    assert port.FULL == ref.FULL and port.SMOKE == ref.SMOKE
+    assert (port.SEED, port.ANALYTIC_TOL, port.ANALYTIC_REL,
+            port.MIN_CELL_SPEEDUP) == (ref.SEED, ref.ANALYTIC_TOL,
+                                       ref.ANALYTIC_REL, ref.MIN_CELL_SPEEDUP)
+
+
+def test_bench_plan_twin_smoke_gates_and_answers_equal_reference():
+    port, ref = _pair("bench_plan")
+    script = os.path.join(REPO, "benchmarks", "torch_port", "bench_plan.py")
+    out = subprocess.run([sys.executable, script, "--smoke", "--device",
+                          "cpu", "--check"],
+                         env=dict(os.environ, PYTHONPATH=os.path.join(
+                             REPO, "src")),
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+    from benchmarks.torch_port._record import record_paths
+    with open(record_paths("plan")[1]) as f:
+        rec = json.load(f)
+    assert rec["scale"] == "smoke" and rec["device"] == {"platform": "cpu"}
+    assert all(v is not False for v in rec["gates"].values()), rec["gates"]
+    grid = ref.dense_grid(ref.SMOKE)
+    assert rec["grid"]["cells"] == grid["cells"]
+    assert rec["grid"]["n_opt"] == grid["n_opt"]
+    for g, w in zip(rec["grid"]["rows"], grid["rows"]):
+        assert g["n"] == w["n"] and g["meets"] == w["meets"]
+        assert g["p99_mean"] == pytest.approx(w["p99_mean"], rel=1e-6)
+    res, _ = ref.run_planner(ref.SMOKE)
+    got = rec["planner"]
+    assert got["n_star"] == res.n_star
+    assert got["cell_evals"] == res.cell_evals
+    assert [(p["n"], p["meets"]) for p in got["probes"]] == \
+        [(p["n"], p["meets"]) for p in res.probes]
+    np.testing.assert_allclose(got["verified"]["values"],
+                               res.verified["values"], rtol=1e-6)
+    assert abs(got["continuous_capacity"] - res.params["capacity"]) <= 1e-2
+
+
+def test_bench_plan_twin_needs_a_card_or_device_cpu(tmp_path):
+    script = os.path.join(REPO, "benchmarks", "torch_port", "bench_plan.py")
+    out = subprocess.run([sys.executable, script, "--smoke"],
+                         env=_no_card_env(), capture_output=True, text=True,
+                         timeout=120, cwd=tmp_path)
+    assert out.returncode == 2
+    assert "torch.cuda.is_available() is False" in out.stderr
+    assert "dense grid" not in out.stdout
+
+
 def test_twins_and_chip_smoke_import_neither_jax_nor_repro():
-    twins = FIGURES + ["fig_batching", "bench_vector", "run", "common",
-                       "_record"]
+    twins = FIGURES + ["fig_batching", "bench_vector", "bench_plan", "run",
+                       "common", "_record"]
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"

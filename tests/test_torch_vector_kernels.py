@@ -250,10 +250,18 @@ def test_quantile_ranks_match_jax():
 
 
 def test_soft_mode_consts_raise():
+    """Soft-mode consts (``tau``) raise at the kernel wrappers, which
+    implement the hard step only; ``ops`` routes them to the plain step
+    with the smoothed water-fill instead."""
     consts, carry, xs = _torch_args(*_inputs(3, False, T=2))
     consts["tau"] = 0.05
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ops.scalar_scan(consts, carry, xs)
+    for wrapper in (vector_step.scalar_scan, vector_step.batched_scan):
+        with pytest.raises(ValueError, match="soft-mode consts"):
+            wrapper(consts, carry, xs)
+    got = ops.scalar_scan(consts, carry, xs)
+    want = ref.scalar_scan(consts, carry, xs)
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("wrapper", ["scalar_scan", "batched_scan",

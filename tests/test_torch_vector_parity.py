@@ -308,10 +308,12 @@ def test_entry_point_defaults_pinned(capsys):
 
 
 def test_not_ported_surfaces_raise():
-    """What is still not ported raises: soft mode.  Control on the
-    engine runtime and ``batched-serving`` with ``arch=`` are ported and
-    build: the flash crowd's runtime carries its controller and a
-    standby pool, the batched scenario its roofline service."""
+    """What is still not ported raises: the planner's result cache.
+    Soft mode, control on the engine runtime and ``batched-serving``
+    with ``arch=`` are ported and build: soft consts run the plain step,
+    the flash crowd's runtime carries its controller and a standby
+    pool, the batched scenario its roofline service."""
+    from repro_torch.plan import PlanSpec, run_plan
     from repro_torch.core.profiles import BatchedService
     from repro_torch.core.runtime import EngineRuntime
     from repro_torch.kernels import ops
@@ -322,8 +324,17 @@ def test_not_ported_surfaces_raise():
     batched = tsc.get("batched-serving", arch="phi3-mini-3.8b")
     assert batched.service_model == \
         BatchedService.from_arch("phi3-mini-3.8b")
-    with pytest.raises(NotImplementedError, match="soft mode"):
-        ops.scalar_scan({"tau": 0.1}, (), ())
+    with pytest.raises(NotImplementedError, match="item 5"):
+        run_plan(PlanSpec(), cache=object())
+    U = torch.zeros((1, 1))
+    t = torch.zeros(1, dtype=torch.int32)
+    soft = {"c": torch.ones((1, 1)), "fail_slot": -torch.ones(
+        (1, 1), dtype=torch.int32), "dt": 0.005, "tau": 0.1}
+    ones = torch.ones((1, 1, 1))
+    carry, ys = ops.scalar_scan(soft, (U, U, torch.zeros(1)),
+                                (t, ones, ones, torch.zeros((1, 1)),
+                                 torch.zeros((1, 1)), ones, ones, ones))
+    assert torch.isfinite(ys[0]).all()
     # the simulator and the compiler's control pre-pass no longer raise
     assert run_scenario(tsc.get("steady", duration=1.0), "sim").recorder.all
     assert compile_experiment(sc.compile()).control_actions is not None
