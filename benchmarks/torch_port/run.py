@@ -16,20 +16,21 @@ import traceback
 
 
 def main() -> None:
-    from benchmarks.torch_port import (bench_plan, fig1_qps_latency,
+    from benchmarks.torch_port import (bench_cache, bench_plan,
+                                       fig1_qps_latency,
                                        fig4_equivalence, fig5_multiserver,
                                        fig6_interleaved, fig7_dynamic_qps,
                                        fig8_balancing, fig_batching, hedging)
     benches = [fig1_qps_latency, fig4_equivalence, fig5_multiserver,
                fig6_interleaved, fig7_dynamic_qps, fig8_balancing,
-               fig_batching, hedging, bench_plan]
+               fig_batching, hedging, bench_plan, bench_cache]
     print("name,us_per_call,derived")
     failures = 0
     for b in benches:
         try:
             rc = b.main()
-            # the figures return their derived metric; bench_plan its
-            # exit status
+            # the figures return their derived metric; bench_plan and
+            # bench_cache their exit status
             if isinstance(rc, int) and rc:
                 raise RuntimeError(f"exit status {rc}")
         except Exception:

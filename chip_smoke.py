@@ -51,6 +51,19 @@ pre-pass shapes) and real-model serving of a dense attention model
    card and on the CPU: no kernel launched (soft consts take the plain
    step), rows equal within ``SOFT_RTOL``; prints a ``soft:`` line with
    the walls;
+4f. runs the result cache (``repro_torch.cache``) on the card, in a
+   scratch directory under ``build/`` removed at the end: the fig1 sweep
+   cold through a fresh cache (one ``scalar_scan`` and one
+   ``fused_quantiles`` launch, 117 cells and 117 rows stored, rows equal
+   to 4c's uncached frame), warm through a new cache on the same
+   directory (117 hits from disk, no miss, no vector-kernel launch, rows
+   equal), with one QPS point edited (``CACHE_EDIT_QPS``: its 13 cells in
+   one launch, the other 104 rows equal), three fig1 cells on the CPU
+   through that directory (3 misses: the device is in the key), and
+   bench_plan's smoke problem planned on the card twice through a
+   directory of its own: cold (the ladder's grids launch) and warm
+   (``cell_evals`` 0, no launch, the same ``n_star``, probes and
+   verified values); prints ``cache:`` lines with the walls;
 5. runs phi3-mini-3.8b at full width and a depth of 2 layers on the CPU
    (plain versions) and on the card (kernels), from the same seeded
    weights: a 128-token prompt and 8 greedy tokens, equal tokens and
@@ -94,12 +107,15 @@ result.  The full record is also written to
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1178,7 +1194,7 @@ def sweep_rows_equal(name, frame, cells) -> None:
 
 def run_sweep_phase(results, vector_kernels) -> tuple:
     """The sweep layer on the card (step 4c); -> (record, the launches
-    of its main-path sweeps)."""
+    of its main-path sweeps, the uncached fig1 frame)."""
     from benchmarks.torch_port.bench_vector import build_grid, grid_programs
     from repro_torch.sweep import Axis, Sweep, run_sweep, scenario_factory
     from repro_torch.sweep.executor import mp_context
@@ -1211,6 +1227,7 @@ def run_sweep_phase(results, vector_kernels) -> tuple:
     # the fig1 grid of the bench twin, against run_cells on its programs
     sweep = build_grid(smoke=False, runtime="vector")
     frame, rec["fig1"] = timed_sweep("fig1", sweep)
+    fig1 = frame
     # the layer in front of run_cells: the factory and compile_experiment
     t0 = time.perf_counter()
     progs, seeds = grid_programs(sweep)
@@ -1276,7 +1293,7 @@ def run_sweep_phase(results, vector_kernels) -> tuple:
     rec["mixed"].update(start_method=method)
     print(f"sweep steady-mixed: process frame ({method} workers) equals "
           f"the serial one; vector rows equal the CPU's", flush=True)
-    return rec, total
+    return rec, total, fig1
 
 
 #: the soft phase's grid: ``steady`` (8 s, seed 3, the reference
@@ -1351,6 +1368,156 @@ def run_plan_phase(vector_kernels) -> tuple:
           f"{grid_cells} of the dense grid ({rec['cell_speedup']:.2f}x)",
           flush=True)
     return rec, n
+
+
+#: the cache phase's partial re-run: this fig1 QPS point changes, the
+#: other 8 stay (step 4f)
+CACHE_EDIT_QPS = (4600, 4700)
+
+
+def run_cache_phase(vector_kernels, cache_root: Path, fig1) -> tuple:
+    """The result cache on the card (step 4f), in ``cache_root``: fig1
+    cold, warm from disk and with one point edited, three fig1 cells on
+    the CPU, and bench_plan's smoke problem planned cold then warm;
+    -> (record, the launches of its cold runs)."""
+    from benchmarks.torch_port.bench_vector import build_grid, grid_programs
+    from repro_torch.cache import ResultCache, scan
+    from repro_torch.plan import PlanSpec, run_plan
+    from repro_torch.sweep import Axis, run_sweep
+    from repro_torch.vector import VectorConfig, run_cells
+    rec, total = {}, {k.__name__: 0 for k in vector_kernels}
+    sweep_dir = str(cache_root / "sweep")
+
+    def timed(fn):
+        for k in vector_kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, \
+            {k.__name__: k.launches for k in vector_kernels}
+
+    def rows(frame) -> list:
+        return [json.dumps(r.to_dict()) for r in frame.rows]
+
+    def sweep_run(label, sweep):
+        cache = ResultCache(cache_dir=sweep_dir)
+        frame, wall, n = timed(lambda: run_sweep(
+            sweep, progress=None, cache=cache).raise_errors())
+        st = cache.stats.as_dict()
+        rec[label] = {"wall_s": wall, "launches": n, "stats": st}
+        print(f"cache: fig1 {label} {wall:.4f} s, {cache.stats}, "
+              f"launches {n}", flush=True)
+        return frame, st, n
+
+    sweep = build_grid(smoke=False, runtime="vector")
+    tasks = len(sweep.tasks())
+    cold, st, n = sweep_run("cold", sweep)
+    stored = scan(sweep_dir)["salts"][ResultCache(cache_dir=None).salt]
+    rec["cold"]["stored"] = stored
+    if n != {"scalar_scan": 1, "batched_scan": 0, "fused_quantiles": 1}:
+        fail(f"cache: cold fig1 launched {n}, one scalar_scan and one "
+             f"fused_quantiles expected")
+    if (stored["cells"], stored["rows"]) != (tasks, tasks) or st["hits"]:
+        fail(f"cache: cold fig1 stored {stored} with {st}, {tasks} cells "
+             f"and {tasks} rows expected")
+    if rows(cold) != rows(fig1):
+        fail("cache: cold fig1 rows differ from step 4c's uncached frame")
+    for name in total:
+        total[name] += n[name]
+
+    warm, st, n = sweep_run("warm", sweep)
+    if (st["hits"], st["misses"]) != (tasks, 0) or any(n.values()):
+        fail(f"cache: warm fig1 {st}, launches {n}: {tasks} hits, 0 misses "
+             f"and no launch expected")
+    if rows(warm) != rows(cold):
+        fail("cache: warm fig1 rows differ from the cold run's")
+    rec["warm_speedup"] = rec["cold"]["wall_s"] / rec["warm"]["wall_s"]
+
+    old, new = CACHE_EDIT_QPS
+    qps = sweep.axes[0].values
+    edited = dataclasses.replace(sweep, axes=(Axis("qps", tuple(
+        new if q == old else q for q in qps)),))
+    point = qps.index(old)
+    reps = sweep.reps
+    part, st, n = sweep_run("partial", edited)
+    if n != {"scalar_scan": 1, "batched_scan": 0, "fused_quantiles": 1} \
+            or (st["hits"], st["misses"]) != (tasks - reps, 2 * reps):
+        fail(f"cache: partial fig1 {st}, launches {n}: the edited point's "
+             f"{reps} cells in one launch expected")
+    kept = [k for k, r in enumerate(part.rows) if r.index != point]
+    got, want = rows(part), rows(cold)
+    if len(kept) != tasks - reps or \
+            [got[k] for k in kept] != [want[k] for k in kept]:
+        fail("cache: partial fig1: the unedited rows differ from the cold "
+             "run's")
+    for k, r in enumerate(part.rows):
+        if r.index == point and (r.params["qps"] != new or not all(
+                math.isfinite(v) for v in r.metrics.values())):
+            fail(f"cache: partial fig1 row {k}: {r.params} {r.metrics}")
+    for name in total:
+        total[name] += n[name]
+
+    progs, seeds = grid_programs(sweep)
+    pick = [0, len(progs) // 2, len(progs) - 1]
+    cache = ResultCache(cache_dir=sweep_dir)
+    run_cells([progs[i] for i in pick], [seeds[i] for i in pick],
+              VectorConfig(device="cpu"), cache=cache)
+    rec["cpu_cells"] = cache.stats.as_dict()
+    if (cache.stats.hits, cache.stats.misses) != (0, 3):
+        fail(f"cache: three fig1 cells on the CPU: {cache.stats}, 3 misses "
+             f"expected (the card's entries must not answer them)")
+    print(f"cache: three fig1 cells on the CPU: {cache.stats}", flush=True)
+
+    # the planner, cold then warm, on bench_plan's smoke problem (its
+    # FULL problem runs uncached in step 4d)
+    from benchmarks.torch_port.bench_plan import SEED, SMOKE, _overrides
+    spec = PlanSpec(scenario="steady", objective="p99", slo=SMOKE["slo"],
+                    overrides=_overrides(SMOKE), steps=SMOKE["steps"],
+                    starts=SMOKE["starts"], samples=SMOKE["samples"],
+                    probe_reps=SMOKE["probe_reps"], reps=SMOKE["reps"],
+                    seed=SEED)
+    plans = {}
+    for label in ("cold", "warm"):
+        cache = ResultCache(cache_dir=str(cache_root / "plan"))
+        res, wall, n = timed(lambda: run_plan(
+            spec, vector_config=VectorConfig(device="cuda"), cache=cache))
+        plans[label] = res
+        rec[f"plan_{label}"] = {"wall_s": wall, "launches": n,
+                                "stats": cache.stats.as_dict(),
+                                "cell_evals": res.cell_evals,
+                                "n_star": res.n_star}
+        print(f"cache: {label} plan {wall:.3f} s, n_star {res.n_star}, "
+              f"probes {[(p['n'], p['meets']) for p in res.probes]}, "
+              f"{res.cell_evals} exact cells, {cache.stats}, launches {n}",
+              flush=True)
+    cold_plan, warm_plan = plans["cold"], plans["warm"]
+    n = rec["plan_cold"]["launches"]
+    if cold_plan.cell_evals == 0 or n["scalar_scan"] == 0 or \
+            n["fused_quantiles"] == 0:
+        fail(f"cache: cold plan spent {cold_plan.cell_evals} cells and "
+             f"launched {n}; the ladder's grids on the card expected")
+    for name in total:
+        total[name] += n[name]
+    n = rec["plan_warm"]["launches"]
+    if warm_plan.cell_evals != 0 or rec["plan_warm"]["stats"]["misses"] \
+            or any(n.values()):
+        fail(f"cache: warm plan spent {warm_plan.cell_evals} cells "
+             f"({rec['plan_warm']['stats']}) and launched {n}; none "
+             f"expected")
+    if warm_plan.n_star != cold_plan.n_star or \
+            json.dumps(warm_plan.probes) != json.dumps(cold_plan.probes) or \
+            warm_plan.verified["values"] != cold_plan.verified["values"]:
+        fail(f"cache: warm plan n_star {warm_plan.n_star} probes "
+             f"{warm_plan.probes} differ from the cold run's "
+             f"{cold_plan.n_star} {cold_plan.probes}")
+    print(f"cache: fig1 cold {rec['cold']['wall_s']:.4f} s (stored "
+          f"{stored['cells']} cells, {stored['bytes']} bytes), warm "
+          f"{rec['warm']['wall_s']:.4f} s ({rec['warm_speedup']:.1f}x), "
+          f"partial {rec['partial']['wall_s']:.4f} s; warm plan equals "
+          f"the cold one", flush=True)
+    return rec, total
 
 
 def run_soft_phase(vector_kernels) -> dict:
@@ -1524,8 +1691,8 @@ def main() -> int:
     record["chaos_control"] = check_chaos_control(chaos)
 
     # ---- main path 1c, the sweep layer: vector sweeps as one grid ----------
-    record["sweep"], sweep_launches = run_sweep_phase(results,
-                                                      vector_kernels)
+    record["sweep"], sweep_launches, fig1 = run_sweep_phase(results,
+                                                            vector_kernels)
     for name in ("scalar_scan", "fused_quantiles"):
         launches[name] += sweep_launches[name]
     record["sweep_launches"] = sweep_launches
@@ -1537,6 +1704,18 @@ def main() -> int:
 
     # ---- 1e, soft mode: the plain step on the card --------------------------
     record["soft"] = run_soft_phase(vector_kernels)
+
+    # ---- main path 1f, the result cache: warm runs launch nothing -----------
+    (ROOT / "build").mkdir(exist_ok=True)
+    cache_root = Path(tempfile.mkdtemp(prefix="chip_smoke_cache.",
+                                       dir=ROOT / "build"))
+    try:
+        record["cache"], cache_launches = run_cache_phase(
+            vector_kernels, cache_root, fig1)
+    finally:
+        shutil.rmtree(cache_root, ignore_errors=True)
+    for name in ("scalar_scan", "fused_quantiles"):
+        launches[name] += cache_launches[name]
 
     # ---- full width, reduced depth: the card against the CPU ---------------
     record["full_width"] = check_full_width(device)

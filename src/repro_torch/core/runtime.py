@@ -720,12 +720,14 @@ class EngineRuntime:
 # ---------------------------------------------------------------------------
 def run_scenario(scenario, backend: str = "vector", *, rep: int = 0,
                  vector_config=None, engines=None, engine_factory=None,
-                 **engine_kw):
+                 cache=None, **engine_kw):
     """Compile ``scenario`` and execute repetition ``rep`` on ``backend``:
     ``"vector"`` (the grid runtime; ``vector_config`` picks the device,
-    the card by default), ``"sim"`` (the event simulator, on the host) or
-    ``"engine"`` (wall clock, on the supplied ``engines``).  Returns the
-    finished runtime (telemetry under ``.telemetry``).
+    the card by default; a ``repro_torch.cache.ResultCache`` in
+    ``cache`` serves the cell warm when it holds it), ``"sim"`` (the
+    event simulator, on the host) or ``"engine"`` (wall clock, on the
+    supplied ``engines``).  Returns the finished runtime (telemetry under
+    ``.telemetry``).
 
     The default backend differs from the reference's: ``"vector"`` here,
     ``"sim"`` in ``repro.core.runtime.run_scenario``.  The port's entry
@@ -739,7 +741,7 @@ def run_scenario(scenario, backend: str = "vector", *, rep: int = 0,
         rt = SimulatorRuntime(exp, rep=rep)
     elif backend == "vector":
         from repro_torch.vector import VectorRuntime
-        rt = VectorRuntime(exp, rep=rep, config=vector_config)
+        rt = VectorRuntime(exp, rep=rep, config=vector_config, cache=cache)
     elif backend == "engine":
         if engines is None:
             raise ValueError("backend='engine' needs engines=")

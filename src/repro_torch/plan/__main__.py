@@ -14,8 +14,11 @@ probe ladder plus the final measurement are the only exact cells spent.
 ``--no-verify`` reports the continuous optimum alone.  Both run on the
 CUDA card; ``--device cpu`` runs them on the host (the kernels' plain
 PyTorch versions).  Where the port differs from ``python -m
-repro.plan``: ``--device``, and no result-cache flags (the cache is not
-ported yet).
+repro.plan``: ``--device``.  ``--cache`` (or ``--cache-dir DIR``) serves
+the ladder's exact cells from the port's result cache
+(``repro_torch.cache``, default ``artifacts/cache_torch``); the cells it
+serves are not counted in ``cell_evals``, and a ``cache[...]`` stats
+line follows the answer.
 
 Writes ``<out>/plan_<scenario>.json`` (the full ``PlanResult``) and
 prints the verified provisioning point.  Exit status is non-zero when
@@ -105,6 +108,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=OUT_DEFAULT,
                     help=f"artifact directory (default {OUT_DEFAULT})")
     ap.add_argument("--quiet", action="store_true")
+    from repro_torch.cache import add_cache_args, cache_from_args
+    add_cache_args(ap)
     args = ap.parse_args(argv)
 
     if args.list:
@@ -154,8 +159,10 @@ def main(argv=None) -> int:
         print(msg, file=sys.stderr, flush=True)
 
     from repro_torch.vector import VectorConfig
+    cache = cache_from_args(args)
     res = run_plan(spec, progress=None if args.quiet else _progress,
-                   vector_config=VectorConfig(device=args.device))
+                   vector_config=VectorConfig(device=args.device),
+                   cache=cache)
 
     os.makedirs(args.out, exist_ok=True)
     path = os.path.join(args.out, f"plan_{args.scenario}.json")
@@ -174,6 +181,8 @@ def main(argv=None) -> int:
               f"{args.objective}={v['mean']:.4g} +- {v['ci95']:.4g} "
               f"({'feasible' if res.feasible else 'INFEASIBLE'}; "
               f"{res.cell_evals} exact cells)")
+    if cache is not None:
+        print(f"cache[{cache.cache_dir}] {cache.stats}")
     print(f"wrote {path}")
     return 0 if res.feasible else 1
 

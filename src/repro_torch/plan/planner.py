@@ -20,8 +20,10 @@ tolerance; the ladder's integer decisions are the reference's.
 
 ``run_plan_sweep`` adapts a ``mode="optimize"`` sweep spec onto the
 same entry point so planner runs flow through the ``ResultFrame`` / CSV /
-artifact machinery.  Not ported yet: the result cache (``cache=``
-raises ``NotImplementedError``).
+artifact machinery.  A result cache (``repro_torch.cache.ResultCache``,
+``cache=``) serves the ladder's exact cells it holds — from an earlier
+run, a dense grid of the same question, or an earlier probe of the same
+run — and ``cell_evals`` counts only the cells it could not serve.
 """
 from __future__ import annotations
 
@@ -116,20 +118,13 @@ def mean_ci95(vals) -> tuple:
     return m, float(1.96 * vals.std(ddof=1) / np.sqrt(vals.size))
 
 
-def _no_cache(cache) -> None:
-    if cache is not None:
-        raise NotImplementedError("run_plan(cache=...): the result cache "
-                                  "is not ported yet (ROADMAP Queue A "
-                                  "item 5)")
-
-
 class _ExactEvaluator:
     """Runs integer fleet candidates on the exact vector runtime and
     counts every cell.  One compile per candidate; repetitions differ
     only in their (seed, stream) pairs, derived through the sweep
     machinery's SeedSequence spawn tree."""
 
-    def __init__(self, spec: PlanSpec, vector_config=None):
+    def __init__(self, spec: PlanSpec, vector_config=None, cache=None):
         from repro_torch.vector import VectorConfig
         self.spec = spec
         base = vector_config or VectorConfig()
@@ -139,6 +134,13 @@ class _ExactEvaluator:
         self.cfg = dataclasses.replace(base, dt=spec.dt)
         self.cells = 0
         self._progs: dict = {}
+        # content-addressed reuse: cells repeat across the ladder (the
+        # final measurement re-reads the probe of the same fleet) and
+        # across runs (disk) — e.g. a planner run after a dense sweep of
+        # the same scenario finds nearly every cell already stored.
+        # Cells served from the cache are NOT counted: ``cells`` is
+        # genuinely new work.
+        self.cache = cache
 
     def _program(self, n: int):
         from repro_torch.scenarios import get
@@ -165,8 +167,14 @@ class _ExactEvaluator:
         prog = self._program(n)
         seeds = [(spawn_seed(self.spec.seed, int(n), rep), rep)
                  for rep in range(reps)]
-        results = run_cells([prog] * reps, seeds, self.cfg)
-        self.cells += reps
+        if self.cache is None:
+            results = run_cells([prog] * reps, seeds, self.cfg)
+            self.cells += reps
+        else:
+            before = self.cache.stats.hits
+            results = run_cells([prog] * reps, seeds, self.cfg,
+                                cache=self.cache)
+            self.cells += reps - (self.cache.stats.hits - before)
         return [_metric_of(r, self.spec.objective) for r in results]
 
 
@@ -186,13 +194,13 @@ def run_plan(spec: PlanSpec, *,
     """Execute one planning problem end to end: multi-start Adam on the
     smoothed surrogate, then integer rounding verified on the exact
     vector runtime, both on ``vector_config.device`` (the card unless
-    it asks for the CPU)."""
+    it asks for the CPU).  ``cache`` serves the ladder's exact cells it
+    holds; ``cell_evals`` counts the rest."""
     from repro_torch.device import resolve_device
     from repro_torch.training.optimizer import (OptConfig, adamw_update,
                                                 init_opt_state)
     from repro_torch.vector import VectorConfig
 
-    _no_cache(cache)
     if spec.objective not in OBJECTIVES:
         raise PlanError(f"unknown objective {spec.objective!r}")
     if not spec.params:
@@ -273,7 +281,7 @@ def run_plan(spec: PlanSpec, *,
         return result
 
     # ---- integer rounding + exact-runtime ladder ---------------------------
-    ev = _ExactEvaluator(spec, vector_config=vector_config)
+    ev = _ExactEvaluator(spec, vector_config=vector_config, cache=cache)
     lo_n = int(np.ceil(lo["capacity"]))
     hi_n = int(np.floor(hi["capacity"]))
     n = int(np.clip(round(best_params["capacity"]), lo_n, hi_n))
@@ -354,9 +362,9 @@ def run_plan_sweep(sweep, *,
     probe, and one final verified row."""
     from repro_torch.sweep.results import ResultFrame, SweepRow
 
-    _no_cache(cache)
     spec = plan_spec_from_sweep(sweep)
-    res = run_plan(spec, progress=progress, vector_config=vector_config)
+    res = run_plan(spec, progress=progress, vector_config=vector_config,
+                   cache=cache)
     rows = []
     for s, row in enumerate(res.starts):
         rows.append(SweepRow(

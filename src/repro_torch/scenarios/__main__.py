@@ -26,7 +26,10 @@ admission control and the control loop run on it as on ``sim``.  The
 vector and model runs go to the CUDA card; ``--device cpu`` runs the
 kernels' plain PyTorch versions on the CPU instead.  The report's first line
 names the backend and where it ran (``device=host`` for ``sim`` and
-the stub engines).
+the stub engines).  ``--cache`` (or ``--cache-dir DIR``) serves the
+vector cell from the port's result cache (``repro_torch.cache``, default
+``artifacts/cache_torch``) when it holds it, and prints a ``cache[...]``
+stats line after the report.
 """
 from __future__ import annotations
 
@@ -108,6 +111,8 @@ def main(argv=None) -> int:
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--time-scale", type=float, default=1.0,
                     help="engine backend: virtual->wall time stretch")
+    from repro_torch.cache import add_cache_args, cache_from_args
+    add_cache_args(ap)
     args = ap.parse_args(argv)
 
     if args.list or not args.name:
@@ -129,12 +134,14 @@ def main(argv=None) -> int:
     on_host = args.backend == "sim" or (args.backend == "engine"
                                         and not args.arch)
     device = "host" if on_host else args.device
+    cache = cache_from_args(args)
     if args.backend == "sim":
         rt = run_scenario(sc, "sim")
     elif args.backend == "vector":
         from repro_torch.vector import VectorConfig
         rt = run_scenario(sc, args.backend,
-                          vector_config=VectorConfig(device=args.device))
+                          vector_config=VectorConfig(device=args.device),
+                          cache=cache)
     elif args.arch:
         from repro_torch.scenarios.backends import \
             run_experiment_on_real_engines
@@ -159,6 +166,8 @@ def main(argv=None) -> int:
             sleep=clock.sleep)
         rt.run()
     _print_report(rt, sc, args.backend, device)
+    if cache is not None:
+        print(f"cache[{cache.cache_dir}] {cache.stats}")
     if args.csv:
         _write_csv(rt, args.csv)
     return 0

@@ -25,8 +25,8 @@ vector runtime's parity with the JAX package.  Where the port's
 defaults differ: the vector grid runs on the card unless
 ``vector_config`` asks for the CPU, and the CLI's ``--runtime`` defaults
 to ``vector`` (the reference's to ``sim``).  A ``mode="optimize"``
-sweep runs the gradient planner (``repro_torch.plan``).  Not ported
-yet: the result cache (``cache=``).
+sweep runs the gradient planner (``repro_torch.plan``).  ``cache=``
+takes the port's result cache (``repro_torch.cache``).
 
     PYTHONPATH=src python -m repro_torch.sweep --list
     PYTHONPATH=src python -m repro_torch.sweep steady --axis qps=300,600,900 \

@@ -25,8 +25,10 @@ kernels' plain PyTorch versions on the CPU (in place of the reference's
 ``--vector-impl``/``--vector-backend``/``--vector-devices``).  A
 ``--file`` declaration, and ``--smoke``, still mean ``sim`` where they
 name no runtime, as in the reference.  An ``optimize`` declaration runs
-the gradient planner on ``--device``.  Not ported yet: the result-cache
-flags.
+the gradient planner on ``--device``.  ``--cache`` (or ``--cache-dir
+DIR``) reuses the port's result cache (``repro_torch.cache``, default
+``artifacts/cache_torch``): warm rows launch nothing, and a ``cache[...]``
+stats line follows the aggregate.
 
 ``--file`` runs a JSON (or YAML, when PyYAML is importable) sweep
 declaration::
@@ -203,6 +205,8 @@ def main(argv=None) -> int:
                     help=f"artifact directory (default {OUT_DEFAULT})")
     ap.add_argument("--quiet", action="store_true",
                     help="suppress per-task progress lines")
+    from repro_torch.cache import add_cache_args, cache_from_args
+    add_cache_args(ap)
     args = ap.parse_args(argv)
 
     if args.list:
@@ -245,14 +249,18 @@ def main(argv=None) -> int:
         print(msg, file=sys.stderr, flush=True)
 
     from repro_torch.vector import VectorConfig
+    cache = cache_from_args(args)
     frame = run_sweep(sweep, executor=args.executor, workers=args.workers,
                       progress=None if args.quiet else _progress,
-                      vector_config=VectorConfig(device=args.device))
+                      vector_config=VectorConfig(device=args.device),
+                      cache=cache)
     json_path = os.path.join(args.out, f"{frame.name}.json")
     csv_path = os.path.join(args.out, f"{frame.name}.csv")
     frame.to_json(json_path)
     frame.to_csv(csv_path)
     _print_aggregate(frame)
+    if cache is not None:
+        print(f"cache[{cache.cache_dir}] {cache.stats}")
     print(f"wrote {json_path}")
     print(f"wrote {csv_path}")
     return 1 if frame.errors else 0

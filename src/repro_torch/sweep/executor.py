@@ -2,8 +2,9 @@
 
 Copy of ``repro.sweep.executor``, with the vector grid path on the
 card.  A ``mode="optimize"`` sweep runs the gradient planner
-(``repro_torch.plan.run_plan_sweep``).  Not ported yet: the result
-cache (``cache=``), which raises ``NotImplementedError``.
+(``repro_torch.plan.run_plan_sweep``).  With a result cache
+(``repro_torch.cache.ResultCache``), rows are looked up before dispatch
+and completed ok rows written back, under every executor.
 
 ``run_sweep(sweep)`` expands the spec into (point, repetition) tasks,
 executes each as an independent deterministic run, and assembles a
@@ -178,7 +179,8 @@ class _VectorCellView:
 
 
 def run_vector_tasks(sweep: Sweep, vec_tasks: list,
-                     fail_fast: bool = False, config=None) -> dict:
+                     fail_fast: bool = False, config=None,
+                     cache=None) -> dict:
     """Execute ``[(k, index, params, rep), ...]`` on the vector backend
     as one batched grid (the whole point of the backend: the grid — not
     the cell — is the unit of execution), on ``config.device``: the card
@@ -188,7 +190,8 @@ def run_vector_tasks(sweep: Sweep, vec_tasks: list,
     from (experiment seed, repetition stream).  A grid that fails (no
     card, a kernel that does not build) becomes error rows, as in the
     reference; callers that need every row call ``raise_errors()`` on
-    the frame or pass ``fail_fast=True``."""
+    the frame or pass ``fail_fast=True``.  A ``cache`` serves the cells
+    it holds without a launch (``run_cells``)."""
     from repro_torch.vector import (VectorConfig, VectorTelemetry,
                                     compile_experiment, run_cells)
     cfg = config if config is not None else VectorConfig()
@@ -212,7 +215,7 @@ def run_vector_tasks(sweep: Sweep, vec_tasks: list,
         seeds.append((exp.seed, stream))
         metas.append((k, i, params, rep, exp, stream))
     try:
-        results = run_cells(progs, seeds, cfg)
+        results = run_cells(progs, seeds, cfg, cache=cache)
     except Exception as e:  # repro: noqa[broad-except] — a failing grid
         if fail_fast:       # the sim/engine tasks sharing the sweep
             raise
@@ -246,6 +249,60 @@ def run_vector_tasks(sweep: Sweep, vec_tasks: list,
                                seed=exp.seed, stream=stream,
                                error=f"{type(e).__name__}: {e}")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Result cache (row level)
+# ---------------------------------------------------------------------------
+def _row_key(cache, sweep: Sweep, index: int, params: dict, rep: int,
+             vector_config=None):
+    """Content key for one (point, rep) row: the compiled experiment,
+    the derived (seed, stream), the runtime, and everything the row
+    extraction depends on (a vector row's device included).  ``None`` =
+    not cacheable (lambda metric, factory failure, no card, ...) — the
+    task simply runs."""
+    seed, stream = sweep.seed_for(index, rep)
+    ctx = PointCtx(params=params, index=index, rep=rep, seed=seed,
+                   stream=stream)
+    try:
+        obj = sweep.factory(ctx)
+        exp = obj.compile() if hasattr(obj, "compile") else obj
+    except Exception:  # repro: noqa[broad-except] — a failing factory
+        # must fail identically on the real path (error row), so the
+        # task is simply not cacheable
+        return None
+    runtime = params.get("runtime", sweep.runtime)
+    sig = {"runtime": runtime, "metrics": list(sweep.metrics),
+           "telemetry": sweep.telemetry, "per_client": sweep.per_client}
+    if runtime == "vector":
+        from repro_torch.vector import VectorConfig
+        try:
+            sig["vector"] = cache.vector_sig(vector_config
+                                             or VectorConfig())
+        except Exception:  # repro: noqa[broad-except] — unresolvable
+            # device (no card, an unknown name, a missing index):
+            # uncacheable, and the real path raises its own error row
+            return None
+    return cache.key("row", exp, (int(seed), int(stream)), sig)
+
+
+def _row_from_payload(index: int, params: dict, rep: int,
+                      payload: dict) -> SweepRow:
+    return SweepRow(index=index, params=params, rep=rep,
+                    seed=payload["seed"], stream=payload["stream"],
+                    metrics=payload["metrics"],
+                    clients=payload.get("clients"),
+                    series=payload.get("series"))
+
+
+def _row_payload(row: SweepRow) -> dict:
+    payload = {"seed": row.seed, "stream": row.stream,
+               "metrics": row.metrics}
+    if row.clients is not None:
+        payload["clients"] = row.clients
+    if row.series is not None:
+        payload["series"] = row.series
+    return payload
 
 
 # ---------------------------------------------------------------------------
@@ -301,19 +358,20 @@ def run_sweep(sweep: Sweep, executor: str = "serial",
     ``mode="optimize"`` sweep runs the gradient planner on the same
     device and returns its phase-tagged frame.
 
-    Not ported yet, and raising ``NotImplementedError``: ``cache`` (the
-    reference's ``repro.cache.ResultCache``).
+    ``cache`` (a ``repro_torch.cache.ResultCache``) is consulted per
+    task BEFORE dispatch — in this process, under every executor — and
+    completed ok rows are written back here too.  Hit rows land at their
+    declaration slot exactly like computed ones, so caching can never
+    reorder or change a frame; a task whose key cannot be computed
+    simply runs.  A vector row's key names its device, so a CPU row
+    never answers a card sweep.
     """
-    if cache is not None:
-        raise NotImplementedError("run_sweep(cache=...): the result cache "
-                                  "is not ported yet (ROADMAP Queue A "
-                                  "item 5)")
     if sweep.mode == "optimize":
         # gradient-planner entry point: the search is an optimizer loop
         # over the smoothed vector surrogate, not a task grid
         from repro_torch.plan import run_plan_sweep
         return run_plan_sweep(sweep, progress=progress,
-                              vector_config=vector_config)
+                              vector_config=vector_config, cache=cache)
     tasks = sweep.tasks()
     total = len(tasks)
     rows: list = [None] * total
@@ -326,17 +384,34 @@ def run_sweep(sweep: Sweep, executor: str = "serial",
                  f"point={row.params} rep={row.rep}: {status}")
 
     done = 0
+    row_keys: list = [None] * total
+    cached: set = set()
+    if cache is not None:
+        for k, (i, params, rep) in enumerate(tasks):
+            row_keys[k] = _row_key(cache, sweep, i, params, rep,
+                                   vector_config)
+            if row_keys[k] is None:
+                continue
+            payload = cache.get_row(row_keys[k])
+            if payload is not None:
+                rows[k] = _row_from_payload(i, params, rep, payload)
+                cached.add(k)
+                done += 1
+                note(done, rows[k])
+
     # vector tasks always run the in-process grid path, whatever the
     # executor: the batched array program IS the parallelism, and the
     # rows are bit-identical to per-task execution by construction —
     # worker counts and executor choice cannot change vector results
     vec_tasks = [(k, i, params, rep)
                  for k, (i, params, rep) in enumerate(tasks)
-                 if params.get("runtime", sweep.runtime) == "vector"]
+                 if rows[k] is None
+                 and params.get("runtime", sweep.runtime) == "vector"]
     if vec_tasks:
         for k, row in run_vector_tasks(sweep, vec_tasks,
                                        fail_fast=fail_fast,
-                                       config=vector_config).items():
+                                       config=vector_config,
+                                       cache=cache).items():
             rows[k] = row
             done += 1
             note(done, row)
@@ -383,6 +458,12 @@ def run_sweep(sweep: Sweep, executor: str = "serial",
     else:
         raise ValueError(f"unknown executor {executor!r} "
                          f"(serial | process)")
+    if cache is not None:
+        # write back every computed ok row (error rows are never
+        # cached: a fixed bug must re-run, not replay its failure)
+        for k, row in enumerate(rows):
+            if k not in cached and row_keys[k] is not None and row.ok:
+                cache.put_row(row_keys[k], _row_payload(row))
     return ResultFrame(name=sweep.name, spec={**sweep.describe(),
                                               "executor": executor},
                        rows=rows)

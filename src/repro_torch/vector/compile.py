@@ -22,18 +22,21 @@ fast lane rather than a bit-identical replay):
   silently dropped.
 
 Copy of ``repro.vector.compile``, the closed-loop control pre-pass
-(``_control_prepass``) included; ``program_from_numpy`` carries a
+(``_control_prepass``) and the content-keyed schedule-rate memo
+(``_RATE_CACHE``) included; ``program_from_numpy`` carries a
 program compiled elsewhere (the JAX package's) into this runtime.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
 
+from repro_torch.cache.fingerprint import Unfingerprintable, fingerprint
 from repro_torch.control import BreakerSpec, ControlSpec, RetryPolicy
 from repro_torch.core.harness import Experiment
 from repro_torch.core.profiles import (BatchedService, FixedProfile,
@@ -49,9 +52,34 @@ class VectorCompileError(ValueError):
     """The experiment uses a feature the vector backend cannot lower."""
 
 
-def _schedule_rates(schedule, centers: np.ndarray) -> np.ndarray:
-    r = np.asarray(schedule.rate_array(centers), float)
-    return np.where(np.isnan(r), 0.0, r)
+#: (schedule fingerprint, n_slots, repr(dt)) -> NaN-cleaned rate array.
+#: Grids that sweep only capacity/policy repeat the SAME ``QPSSchedule``
+#: across every cell; the rate evaluation (trace interpolation, diurnal
+#: curves) is the dominant compile cost there, so compute it once per
+#: unique schedule.  Cached arrays are frozen (read-only views) and the
+#: memo is content-keyed, so sharing cannot change any program's bits.
+_RATE_CACHE: OrderedDict = OrderedDict()
+_RATE_CACHE_CAP = 256
+
+
+def _schedule_rates(schedule, centers: np.ndarray, n_slots: int,
+                    dt: float) -> np.ndarray:
+    try:
+        key = (fingerprint(schedule), n_slots, repr(float(dt)))
+    except Unfingerprintable:
+        r = np.asarray(schedule.rate_array(centers), float)
+        return np.where(np.isnan(r), 0.0, r)
+    r = _RATE_CACHE.get(key)
+    if r is None:
+        r = np.asarray(schedule.rate_array(centers), float)
+        r = np.where(np.isnan(r), 0.0, r)
+        r.setflags(write=False)
+        _RATE_CACHE[key] = r
+        while len(_RATE_CACHE) > _RATE_CACHE_CAP:
+            _RATE_CACHE.popitem(last=False)
+    else:
+        _RATE_CACHE.move_to_end(key)
+    return r
 
 
 @dataclass
@@ -220,7 +248,7 @@ def compile_experiment(exp: Experiment, dt: float = 0.005) -> VectorProgram:
     rates = np.zeros((len(clients), n_slots))
     ends = np.full(len(clients), exp.duration)
     for i, c in enumerate(clients):
-        r = _schedule_rates(c.schedule, centers)
+        r = _schedule_rates(c.schedule, centers, n_slots, dt)
         end = min(c.end_time, exp.duration) if c.end_time is not None \
             else exp.duration
         masked = np.where((centers >= c.start_time) & (centers < end),

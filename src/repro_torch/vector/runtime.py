@@ -215,33 +215,61 @@ def _plan_groups(programs: Sequence[VectorProgram]) -> list:
 
 def run_cells(programs: Sequence[VectorProgram],
               seeds: Sequence[tuple],
-              config: Optional[VectorConfig] = None) -> list[VectorResult]:
+              config: Optional[VectorConfig] = None,
+              cache=None) -> list[VectorResult]:
     """Execute one cell per (program, (seed, stream)) pair — the whole
     grid as one batched array program per (family, shape bucket),
     chunked to bound scan memory, on ``config.device``.
+
+    With a ``repro_torch.cache.ResultCache``, cached cells are filtered
+    out BEFORE ``_plan_groups``: only cold cells enter the batched scan,
+    so a re-run of a 117-cell grid with 3 edited points launches 3
+    cells, and a grid whose every cell hits returns without touching the
+    device.  Each cell's draws come from its own seeded Generator, so
+    which cells happen to be cold can never change any cell's bits.
+    Completed cells are stored as their chunk finishes.
 
     Chunks are double-buffered when ``cfg.pipeline``: chunk k+1's scan
     is launched before chunk k's host finishing runs.  Both orders give
     identical rows: a cell's numbers depend only on its own program,
     seed and config."""
     cfg = config or VectorConfig()
-    device = resolve_device(cfg.device)
     results: list[Optional[VectorResult]] = [None] * len(programs)
-    chunks = []                     # (batched, shape, cell indices)
-    for batched, shape, idxs in _plan_groups(programs):
+    keys: list[Optional[str]] = [None] * len(programs)
+    if cache is not None:
+        cold = []
+        for i, (p, s) in enumerate(zip(programs, seeds)):
+            keys[i] = cache.cell_key(p, s, cfg)
+            hit = cache.get_cell(keys[i]) if keys[i] is not None else None
+            if hit is not None:
+                results[i] = hit
+            else:
+                cold.append(i)
+    else:
+        cold = list(range(len(programs)))
+    if not cold:
+        return results  # type: ignore[return-value]
+
+    device = resolve_device(cfg.device)
+    cold_progs = [programs[i] for i in cold]
+    chunks = []                     # (batched, shape, indices into cold)
+    for batched, shape, idxs in _plan_groups(cold_progs):
         per_cell = max(shape[0] * shape[1], 1)
         chunk = max(1, cfg.max_slot_elems // per_cell)
         for lo in range(0, len(idxs), chunk):
             chunks.append((batched, shape, idxs[lo:lo + chunk]))
 
     def finish(state, part):
-        for i, res in zip(part, _finish_family(state)):
+        for j, res in zip(part, _finish_family(state)):
+            i = cold[j]
             results[i] = res
+            if cache is not None and keys[i] is not None:
+                cache.put_cell(keys[i], res)
 
     pending = None
     for batched, shape, part in chunks:
-        state = _launch_family([programs[i] for i in part],
-                               [seeds[i] for i in part],
+        state = _launch_family([cold_progs[j] for j in part],
+                               [seeds[cold[j]] for j in part],
                                batched, cfg, shape, device)
         if not cfg.pipeline:
             finish(state, part)
@@ -709,12 +737,15 @@ def _finish_cell(prog: VectorProgram, batched: bool, cell: dict,
 # ---------------------------------------------------------------------------
 class VectorRuntime:
     """``Runtime``-shaped adapter over one (experiment, rep) cell: the
-    same numbers the grid path gives for the same (seed, stream)."""
+    same numbers the grid path gives for the same (seed, stream).  A
+    ``cache`` (``repro_torch.cache.ResultCache``) serves the cell warm
+    when it holds it."""
 
     def __init__(self, experiment, rep: int = 0,
-                 config: Optional[VectorConfig] = None):
+                 config: Optional[VectorConfig] = None, cache=None):
         self.experiment = experiment
         self.config = config or VectorConfig()
+        self.cache = cache
         self.program = compile_experiment(experiment, dt=self.config.dt)
         self.seed = (experiment.seed, rep)
         self.unsupported = self.program.unsupported
@@ -739,6 +770,6 @@ class VectorRuntime:
     def run(self):
         from repro_torch.vector.telemetry import VectorTelemetry
         self.result = run_cells([self.program], [self.seed],
-                                self.config)[0]
+                                self.config, cache=self.cache)[0]
         self.telemetry = VectorTelemetry(self.result)
         return self.telemetry

@@ -31,8 +31,8 @@ Parity contracts, each with its tolerance:
 * ``run_sweep(mode="optimize")`` frames against ``repro.sweep``'s: row
   order and phases equal, metrics within the tolerances above.
 
-Plus: bad specs raise ``PlanError``, ``cache=`` raises
-``NotImplementedError``, the optimizer against ``repro.training
+Plus: bad specs raise ``PlanError``, ``cache=`` serves the ladder's cells
+(``cell_evals`` counts only the rest), the optimizer against ``repro.training
 .optimizer``, and the CLI with ``--device cpu`` in a subprocess (and
 without a card and without it, a refusal).
 """
@@ -458,11 +458,33 @@ def test_run_plan_rejects_bad_specs():
                         VectorConfig(device="cpu", soft=True))
 
 
-def test_cache_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        plan.run_plan(plan.PlanSpec(), cache=object())
-    with pytest.raises(NotImplementedError, match="item 5"):
-        plan.run_plan_sweep(_optimize_sweep(Sweep), cache=object())
+def test_cache_is_not_ported_yet(tmp_path):
+    """``cache=`` once raised here; it now serves the ladder's exact
+    cells.  Cold, a cache changes no decision and saves only the cells
+    the ladder repeats (the final measurement re-reads its fleet's
+    probe); warm, every cell is a hit and ``cell_evals`` is 0."""
+    from repro_torch.cache import ResultCache
+    spec = plan.PlanSpec(**{**SMOKE_KW, "steps": 12, "samples": 512})
+    plain = plan.run_plan(spec, vector_config=CPU)
+    cold = ResultCache(cache_dir=str(tmp_path))
+    res1 = plan.run_plan(spec, vector_config=CPU, cache=cold)
+    assert cold.stats.hits == SMOKE_KW["probe_reps"]
+    assert res1.cell_evals == plain.cell_evals - SMOKE_KW["probe_reps"]
+    warm = ResultCache(cache_dir=str(tmp_path))
+    res2 = plan.run_plan(spec, vector_config=CPU, cache=warm)
+    assert res2.cell_evals == 0 and warm.stats.misses == 0
+    for res in (res1, res2):
+        assert res.n_star == plain.n_star
+        assert json.dumps(res.probes) == json.dumps(plain.probes)
+        assert res.verified["values"] == plain.verified["values"]
+    sweep = Sweep(name="plan-steady", factory=None, mode="optimize",
+                  optimize={"scenario": "steady", "slo": 0.02, "steps": 12,
+                            "starts": 1, "samples": 512,
+                            "probe_reps": SMOKE_KW["probe_reps"]},
+                  fixed=dict(SMOKE_OV), reps=SMOKE_KW["reps"], base_seed=0)
+    frame = plan.run_plan_sweep(sweep, cache=warm, vector_config=CPU)
+    assert frame.spec["plan"]["cell_evals"] == 0
+    assert frame.spec["plan"]["n_star"] == plain.n_star
 
 
 def test_objectives_cover_the_vector_summary():

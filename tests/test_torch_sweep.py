@@ -11,8 +11,10 @@ on the CPU, against the JAX package's.
   ``device="cpu"`` within rtol 1e-6 of JAX ``impl="ref"`` (``n`` within
   1, ``dropped`` equal; observed bit-identical); ``run_repeated``
   bit-identical, failures included.
-* What is not ported raises, loudly: ``cache=``, also on a
-  ``mode="optimize"`` sweep;
+* ``cache=`` (``repro_torch.cache``, once the surface here that raised)
+  serves rows: a cold run misses and stores, a warm one hits with the
+  same frame, and a ``mode="optimize"`` sweep hands the cache to the
+  planner (``tests/test_torch_cache.py`` holds the rest);
   a ``batched-serving`` point on the engine runtime is an ordinary row,
   equal to the reference's.
 * The CLI in a subprocess: ``--smoke`` and a positional vector sweep on
@@ -449,13 +451,38 @@ def test_batched_serving_engine_point_is_error_row():
     assert vec.ok and vec.metrics["n"] > 0
 
 
-def test_not_ported_surfaces_raise():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        run_sweep(_grid_sweep(), progress=None, cache=object())
+def test_not_ported_surfaces_raise(tmp_path):
+    """``cache=`` once raised here; it now serves rows.  A cold run
+    misses and stores every row, a warm one (a new cache on the same
+    directory) hits every row, and both frames are the uncached one.  An
+    optimize sweep hands the cache to the planner: its second run spends
+    no exact cell."""
+    from repro_torch.cache import ResultCache
+    sw = _grid_sweep()
+    plain = run_sweep(sw, progress=None)
+    cold = ResultCache(cache_dir=str(tmp_path))
+    first = run_sweep(sw, progress=None, cache=cold)
+    assert (cold.stats.hits, cold.stats.misses, cold.stats.stores) == \
+        (0, 8, 8)
+    warm = ResultCache(cache_dir=str(tmp_path))
+    second = run_sweep(sw, progress=None, cache=warm)
+    assert (warm.stats.hits, warm.stats.misses, warm.stats.stores) == \
+        (8, 0, 0)
+    assert _rows(first) == _rows(second) == _rows(plain)
     opt = Sweep(name="opt", factory=None, mode="optimize",
-                optimize={"scenario": "steady", "slo": 0.01})
-    with pytest.raises(NotImplementedError, match="item 5"):
-        run_sweep(opt, progress=None, cache=object())
+                optimize={"scenario": "steady", "slo": 0.02, "steps": 4,
+                          "starts": 1, "samples": 256, "probe_reps": 1,
+                          "params": {"capacity": [4.0, 1.0, 6.0]}},
+                fixed={"duration": 2.0, "qps": 2000.0, "policy": "jsq"},
+                reps=2)
+    cache = ResultCache(cache_dir=None)
+    evals = []
+    for _ in range(2):
+        frame = run_sweep(opt, progress=None, vector_config=CPU,
+                          cache=cache)
+        final = [r for r in frame.rows if r.params["phase"] == "final"]
+        evals.append(final[0].metrics["cell_evals"])
+    assert evals[0] > 0 and evals[1] == 0.0
     # the optimize spec validates as the reference's does
     with pytest.raises(ValueError, match="optimize block"):
         Sweep(name="opt", factory=None, mode="optimize")

@@ -17,6 +17,14 @@ reference scripts (``benchmarks/``), on the CPU.
   optimum and p99 means (rtol 1e-6), ``n_star``, the probe sequence
   and ``cell_evals``.  Without a card and without ``--device cpu`` it
   exits 2.
+* The ``bench_cache`` twin poses the reference's thresholds and planner
+  problems; its ``--smoke --device cpu --check`` run passes every gate
+  (warm re-run all hits and bit-identical, planner cells within the
+  budget, pipelined chunks bit-identical; the pipelining time gate is
+  the card's, n/a on the CPU) and its planner
+  reuse gives the reference twin's smoke answers (``n_star``, probes,
+  cache hits, ``cell_evals``).  Without a card and without ``--device
+  cpu`` it exits 2.
 * The ``fig_batching`` twin declares the reference's grid (the
   ``runtime`` axis over ``sim`` and ``engine``), gives its ``--quick``
   frame row for row and passes its knee gate with the same knees.
@@ -194,9 +202,58 @@ def test_bench_plan_twin_needs_a_card_or_device_cpu(tmp_path):
     assert "dense grid" not in out.stdout
 
 
+def test_bench_cache_twin_poses_the_reference_thresholds():
+    port, ref = _pair("bench_cache")
+    assert port.PLAN_FULL == ref.PLAN_FULL
+    assert port.PLAN_SMOKE == ref.PLAN_SMOKE
+    assert (port.MIN_WARM_SPEEDUP, port.MIN_HIT_FRAC, port.MAX_PLANNER_CELLS,
+            port.MAX_PIPELINE_RATIO, port.SEED) == \
+        (ref.MIN_WARM_SPEEDUP, ref.MIN_HIT_FRAC, ref.MAX_PLANNER_CELLS,
+         ref.MAX_PIPELINE_RATIO, ref.SEED)
+
+
+def test_bench_cache_twin_smoke_gates_and_answers_equal_reference(tmp_path):
+    port, ref = _pair("bench_cache")
+    script = os.path.join(REPO, "benchmarks", "torch_port", "bench_cache.py")
+    out = subprocess.run([sys.executable, script, "--smoke", "--device",
+                          "cpu", "--check"],
+                         env=dict(os.environ, PYTHONPATH=os.path.join(
+                             REPO, "src")),
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+    from benchmarks.torch_port._record import record_paths
+    with open(record_paths("cache")[1]) as f:
+        rec = json.load(f)
+    assert rec["scale"] == "smoke" and rec["device"] == {"platform": "cpu"}
+    gates = dict(rec["gates"])
+    # the pipelining gate times an overlap with the card: n/a on the CPU
+    assert gates.pop("pipeline_not_slower") is None
+    assert rec["pipeline"]["sync_wall_s"] > 0
+    assert gates and all(gates.values()), gates
+    sweep = rec["sweep"]
+    assert sweep["tasks"] == 12 and sweep["warm_hits"] == 12
+    assert sweep["warm_misses"] == 0 and sweep["stored_cells"] == 12
+    assert rec["pipeline"]["chunks"] == port.PIPELINE_CHUNKS
+    want = ref.planner_section(True, str(tmp_path))
+    got = rec["planner"]
+    for k in ("grid_cells", "n_star", "feasible", "cell_evals_with_cache",
+              "cache_hits", "cache_misses"):
+        assert got[k] == want[k], k
+
+
+def test_bench_cache_twin_needs_a_card_or_device_cpu(tmp_path):
+    script = os.path.join(REPO, "benchmarks", "torch_port", "bench_cache.py")
+    out = subprocess.run([sys.executable, script, "--smoke"],
+                         env=_no_card_env(), capture_output=True, text=True,
+                         timeout=120, cwd=tmp_path)
+    assert out.returncode == 2
+    assert "torch.cuda.is_available() is False" in out.stderr
+    assert "fig1 grid" not in out.stderr
+
+
 def test_twins_and_chip_smoke_import_neither_jax_nor_repro():
-    twins = FIGURES + ["fig_batching", "bench_vector", "bench_plan", "run",
-                       "common", "_record"]
+    twins = FIGURES + ["fig_batching", "bench_vector", "bench_plan",
+                       "bench_cache", "run", "common", "_record"]
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"

@@ -308,7 +308,9 @@ def test_entry_point_defaults_pinned(capsys):
 
 
 def test_not_ported_surfaces_raise():
-    """What is still not ported raises: the planner's result cache.
+    """What once raised is ported: the result cache (a cell misses,
+    then hits with the same arrays, through ``run_cells`` and the
+    planner's ``run_plan(cache=)``).
     Soft mode, control on the engine runtime and ``batched-serving``
     with ``arch=`` are ported and build: soft consts run the plain step,
     the flash crowd's runtime carries its controller and a standby
@@ -324,8 +326,19 @@ def test_not_ported_surfaces_raise():
     batched = tsc.get("batched-serving", arch="phi3-mini-3.8b")
     assert batched.service_model == \
         BatchedService.from_arch("phi3-mini-3.8b")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        run_plan(PlanSpec(), cache=object())
+    from repro_torch.cache import ResultCache
+    cache = ResultCache(cache_dir=None)
+    prog = compile_experiment(tsc.get("steady", duration=1.0).compile())
+    (cold,) = run_cells([prog], [(1, 0)], CPU, cache=cache)
+    (warm,) = run_cells([prog], [(1, 0)], CPU, cache=cache)
+    assert (cache.stats.misses, cache.stats.hits) == (1, 1)
+    assert warm is cold
+    res = run_plan(PlanSpec(overrides={"duration": 2.0, "qps": 2000.0,
+                                       "policy": "jsq"},
+                            params={"capacity": (4.0, 1.0, 6.0)}, steps=2,
+                            starts=1, samples=256, probe_reps=1, reps=1),
+                   vector_config=CPU, cache=cache)
+    assert res.n_star is not None and res.cell_evals >= 1
     U = torch.zeros((1, 1))
     t = torch.zeros(1, dtype=torch.int32)
     soft = {"c": torch.ones((1, 1)), "fail_slot": -torch.ones(
