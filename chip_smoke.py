@@ -4,8 +4,9 @@
 
 Drives the port's main paths on the card, the vector grid runtime (the
 canonical grids and the chaos grids, whose timelines the control
-pre-pass shapes) and real-model serving of a dense attention model
-(phi3-mini-3.8b) and of a Mamba-2 model (mamba2-1.3b):
+pre-pass shapes) and real-model serving of dense attention models
+(phi3-mini-3.8b, and gemma3-12b with its sliding-window layers) and of
+a Mamba-2 model (mamba2-1.3b):
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
@@ -71,7 +72,13 @@ pre-pass shapes) and real-model serving of a dense attention model
    bf16 weights, the card fed the CPU's tokens, within ``BF16_LOGIT_TOL``;
    then mamba2-1.3b the same way, with a 384-token prompt (the SSD scan
    pads it into a second chunk), within ``MAMBA_F32_LOGIT_TOL`` and
-   ``MAMBA_BF16_LOGIT_TOL``;
+   ``MAMBA_BF16_LOGIT_TOL``; then gemma3-12b at 6 layers (one group: 5
+   sliding-window layers and a global one) with an 1100-token prompt,
+   past its 1024-token window, so the prefill fills the ring and the
+   decode writes into the wrapped ring, and stablelm-3b and
+   command-r-35b at 2 layers with 128-token prompts
+   (``FULL_WIDTH_CHECKS``: phi3's tolerances, gemma3's f32 one widened
+   to ``GEMMA_F32_LOGIT_TOL``); each model is freed before the next;
 6. serves phi3-mini-3.8b and then mamba2-1.3b at full width through
    ``repro_torch.launch.serve.main`` (2 replicas sharing one copy of the
    weights, open-loop clients, 10 s each), checks that every request
@@ -80,6 +87,11 @@ pre-pass shapes) and real-model serving of a dense attention model
    per layer and prefill, ``decode_attention`` once per layer and decode
    step; ``ssd_scan`` once per layer and prefill for mamba2; warm-ups
    included), and prints the serving metrics;
+6c. serves gemma3-12b at full width and full depth (48 layers, 11.8 B
+   parameters in bf16) the same way, with 1100-token prompts
+   (``GEMMA_SERVE_ARGS``): every request must complete, with
+   ``flash_attention`` launched 48 times a prefill and
+   ``decode_attention`` 48 times a decode step (warm-ups included);
 6b. drives the closed loop and the retry path on real phi3-mini-3.8b
    replicas at full width (``run_experiment_on_real_engines``, as
    ``launch.serve --scenario`` runs it): ``flash-crowd-autoscale`` with 2
@@ -160,6 +172,17 @@ BF16_LOGIT_TOL = 3e-2
 #: bf16: 4 logit rounding steps, as for phi3; the card read 4.831e-3
 MAMBA_F32_LOGIT_TOL = 1e-3
 MAMBA_BF16_LOGIT_TOL = 3e-2
+#: the same for gemma3-12b at full width, 6 layers (one pattern group),
+#: an 1100-token prompt.  f32: the prefill's logits agree to 7.7e-6, but
+#: every decode step reads bf16 K/V caches, which an f32 difference in
+#: the last place can round apart, and this random-weight model turns
+#: that into up to ~2e-3 of max|logit| (one group, so its matrices are
+#: drawn at std 1 and each projection scales by sqrt(d_model)): the card
+#: read 1.821e-3 with the kernels and 1.821e-3 with the plain versions on
+#: the card, and the CPU against itself with every weight moved by one
+#: f32 ulp 1.583e-3 (scripts/full_width_sensitivity.py; H100 80GB HBM3,
+#: 700 W); tokens equal.  bf16: 4 logit rounding steps, as for phi3
+GEMMA_F32_LOGIT_TOL = 3e-3
 #: SSD kernel vs plain version: both widen the same values to f32 and
 #: differ only by the order of f32 sums and FMA contraction, whatever the
 #: input dtype, so every case is held to the f32 rule of
@@ -178,6 +201,23 @@ MAMBA_SERVE_ARGS = ["--arch", "mamba2-1.3b", "--replicas", "2",
                     "--max-batch", "4", "--prompt-len", "512",
                     "--max-new", "32", "--clients", "2", "--qps", "2",
                     "--duration", "10", "--policy", "jsq", "--seed", "0"]
+#: serve-phi3's flags for gemma3-12b, with prompts past its 1024-token
+#: sliding window (the engine prefills them at their exact length)
+GEMMA_PROMPT = 1100
+GEMMA_SERVE_ARGS = ["--arch", "gemma3-12b", "--replicas", "2",
+                    "--max-batch", "4", "--prompt-len", str(GEMMA_PROMPT),
+                    "--max-new", "32", "--clients", "2", "--qps", "2",
+                    "--duration", "10", "--policy", "jsq", "--seed", "0"]
+#: gemma3-12b's decode cache length in that run (make_warmed_engine)
+GEMMA_SERVE_MAX_LEN = GEMMA_PROMPT + 32 + 32
+#: the full-width checks of step 5 after phi3 and mamba2: (arch, layers,
+#: prompt tokens, f32 and bf16 logit tolerances).  gemma3's 6 layers are
+#: one pattern group (5 sliding-window layers and a global one); its
+#: prompt is longer than the window
+FULL_WIDTH_CHECKS = [
+    ("gemma3-12b", 6, GEMMA_PROMPT, GEMMA_F32_LOGIT_TOL, BF16_LOGIT_TOL),
+    ("stablelm-3b", 2, 128, F32_LOGIT_TOL, BF16_LOGIT_TOL),
+    ("command-r-35b", 2, 128, F32_LOGIT_TOL, BF16_LOGIT_TOL)]
 #: the decode cache length of that run (make_warmed_engine: prompt + new
 #: tokens + 32) and the prefill bucket of its 128-token prompts
 SERVE_MAX_LEN = 128 + 32 + 32
@@ -557,14 +597,20 @@ def library_time(fn):
 
 
 #: (label, B, S = T, H, KV, hd, window): phi3's prefill at three prompt
-#: buckets and the bucket the serving run uses, plus one GQA case with a
-#: sliding window; all causal
+#: buckets and the bucket the serving run uses, one GQA case with a
+#: sliding window, and the served prefills of gemma3-12b (its
+#: sliding-window and global layers at the 1100-token prompt),
+#: stablelm-3b and command-r-35b; all causal
 FLASH_CASES = [
     ("phi3 S=32", 1, 32, 32, 32, 96, None),
     ("phi3 S=128 (served bucket)", 1, SERVE_BUCKET, 32, 32, 96, None),
     ("phi3 S=512", 1, 512, 32, 32, 96, None),
     ("phi3 S=2048", 1, 2048, 32, 32, 96, None),
     ("gqa+window S=1024", 1, 1024, 32, 8, 128, 256),
+    ("gemma3-12b SWA S=1100", 1, GEMMA_PROMPT, 16, 8, 256, 1024),
+    ("gemma3-12b global S=1100", 1, GEMMA_PROMPT, 16, 8, 256, None),
+    ("stablelm-3b S=128", 1, 128, 32, 32, 80, None),
+    ("command-r-35b S=128", 1, 128, 64, 8, 128, None),
 ]
 
 
@@ -618,13 +664,16 @@ def check_flash(device, label, B, S, H, KV, hd, window) -> dict:
 
 #: (label, B, T, H, KV, hd, window, ring): the serving run's decode
 #: (max batch 4, T = its cache length), one ring/window case, gemma3-12b's
-#: decode shape (its 1024-slot sliding-window ring) and the served shape
-#: at batch 1, as a lightly loaded replica runs it
+#: decode shapes (its 1024-slot sliding-window ring, and its global
+#: layers' cache in the serving run) and the served shape at batch 1, as
+#: a lightly loaded replica runs it
 DECODE_CASES = [
     ("phi3 serving B=4 T=192", 4, SERVE_MAX_LEN, 32, 32, 96, None, False),
     ("ring+window B=4 T=512", 4, 512, 32, 8, 128, 384, True),
     ("gemma3-12b B=4 T=1024 ring", 4, 1024, 16, 8, 256, 1024, True),
     ("phi3 B=1 T=192", 1, SERVE_MAX_LEN, 32, 32, 96, None, False),
+    ("gemma3-12b global B=4 T=1164", 4, GEMMA_SERVE_MAX_LEN, 16, 8, 256,
+     None, False),
 ]
 
 
@@ -838,15 +887,17 @@ def greedy(cfg, params, prompt, max_len: int, steps: int, forced=None):
 
 def check_full_width(device, arch: str = "phi3-mini-3.8b",
                      prompt_len: int = 128, f32_tol: float = F32_LOGIT_TOL,
-                     bf16_tol: float = BF16_LOGIT_TOL) -> dict:
-    """``arch`` at full width, 2 layers: the same seeded weights on the
-    CPU (plain versions) and on the card (kernels)."""
+                     bf16_tol: float = BF16_LOGIT_TOL,
+                     layers: int = 2) -> dict:
+    """``arch`` at full width, ``layers`` deep: the same seeded weights
+    on the CPU (plain versions) and on the card (kernels)."""
     from dataclasses import replace
 
     from repro_torch.configs.base import get_config
     from repro_torch.models import param as P
     from repro_torch.models import registry as R
-    cfg = replace(get_config(arch), num_layers=2)
+    t_phase = time.perf_counter()
+    cfg = replace(get_config(arch), num_layers=layers)
     params = R.init_params(cfg, torch.Generator().manual_seed(0))
     prompt = torch.randint(0, cfg.vocab_size, (1, prompt_len),
                            dtype=torch.int32,
@@ -861,8 +912,10 @@ def check_full_width(device, arch: str = "phi3-mini-3.8b",
         rec["cfg"].update(heads=m.n_heads(cfg.d_model), head_dim=m.head_dim,
                           d_state=m.d_state, chunk=m.chunk)
     else:
-        rec["cfg"].update(heads=cfg.num_heads,
-                          head_dim=cfg.resolved_head_dim)
+        rec["cfg"].update(heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+                          head_dim=cfg.resolved_head_dim,
+                          pattern=list(cfg.resolved_pattern),
+                          window=cfg.sliding_window)
 
     def rel_steps(a, b):
         return ((a - b).abs().max(-1).values / b.abs().max(-1).values)
@@ -895,7 +948,9 @@ def check_full_width(device, arch: str = "phi3-mini-3.8b",
         fail(f"full width {arch} f32: logits rel err {err32:.3e} > "
              f"{f32_tol}")
     # the served bf16 weights: the card follows the CPU's tokens
+    t0 = time.perf_counter()
     cpu_l, cpu_t = greedy(cfg, params, prompt, max_len, steps)
+    cpu16_s = time.perf_counter() - t0
     gpu_l, gpu_t = greedy(cfg, P.tree_map(lambda t: t.to(device), params),
                           prompt.to(device), max_len, steps,
                           forced=cpu_t[:-1])
@@ -905,13 +960,17 @@ def check_full_width(device, arch: str = "phi3-mini-3.8b",
                    "argmax_agree": agree, "logits_rel_err": err16,
                    "logits_rel_err_per_step": rel_steps(gpu_l,
                                                         cpu_l).tolist(),
-                   "tol": bf16_tol}
+                   "tol": bf16_tol, "cpu_s": cpu16_s}
     print(f"full width {arch} bf16 (card fed the CPU's tokens): argmax "
           f"agrees at {agree} of {steps + 1} steps, logits rel err "
           f"{err16:.3e}", flush=True)
     if not err16 <= bf16_tol:
         fail(f"full width {arch} bf16: logits rel err {err16:.3e} > "
              f"{bf16_tol}")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"full width {arch}: {layers} layers, {rec['cfg']['params']:,} "
+          f"parameters, {rec['phase_s']:.1f} s (CPU greedy f32 "
+          f"{cpu_s:.1f} s, bf16 {cpu16_s:.1f} s)", flush=True)
     return rec
 
 
@@ -931,6 +990,36 @@ def run_serving(args=SERVE_ARGS) -> dict:
         if not math.isfinite(report[key]) or report[key] <= 0:
             fail(f"serving: {key} = {report[key]!r}")
     return report
+
+
+def check_attention_serving(args, report, launches) -> None:
+    """A dense model's serving run (``launch.serve`` flags ``args``):
+    ``flash_attention`` once per layer and prefill, ``decode_attention``
+    once per layer and decode step, each warm-up (one prefill and one
+    decode step a replica) included; every request prefilled once."""
+    from repro_torch.configs.base import get_config
+    arch = args[args.index("--arch") + 1]
+    layers = get_config(arch).num_layers
+    replicas = int(args[args.index("--replicas") + 1])
+    r = report
+    want = layers * (r["prefills"] + replicas)      # requests + warm-ups
+    if launches["flash_attention"] != want or r["prefills"] != r["n"]:
+        fail(f"{arch} serving: flash_attention launched "
+             f"{launches['flash_attention']} times, expected {layers} "
+             f"x ({r['prefills']} prefills + {replicas} warm-ups) = {want} "
+             f"for {r['n']} requests")
+    want = layers * (r["decode_steps"] + replicas)   # one per warm-up
+    if launches["decode_attention"] != want:
+        fail(f"{arch} serving: decode_attention launched "
+             f"{launches['decode_attention']} times, expected "
+             f"{layers} x ({r['decode_steps']} decode steps + {replicas} "
+             f"warm-ups) = {want}")
+    print(f"serving {arch}: {r['n']} requests, p50 "
+          f"{r['p50_ms']:.1f} ms, p95 {r['p95_ms']:.1f} ms, p99 "
+          f"{r['p99_ms']:.1f} ms, TTFT p50 {r['ttft_p50_ms']:.1f} ms, "
+          f"prefill {r['prefill_ms']:.2f} ms, decode step "
+          f"{r['decode_step_ms']:.2f} ms, {r['tokens_per_s']:.1f} tokens/s, "
+          f"{r['phase_s']:.1f} s", flush=True)
 
 
 def fleet_saturation(engines, vocab: int, clock=time.monotonic,
@@ -1721,6 +1810,10 @@ def main() -> int:
     record["full_width"] = check_full_width(device)
     record["full_width_mamba"] = check_full_width(
         device, "mamba2-1.3b", 384, MAMBA_F32_LOGIT_TOL, MAMBA_BF16_LOGIT_TOL)
+    for arch, layers, prompt_len, f32_tol, bf16_tol in FULL_WIDTH_CHECKS:
+        record[f"full_width_{arch}"] = check_full_width(
+            device, arch, prompt_len, f32_tol, bf16_tol, layers=layers)
+        torch.cuda.empty_cache()
 
     # ---- main path 2, serving phi3-mini-3.8b at full width -----------------
     for k in all_kernels:
@@ -1733,27 +1826,7 @@ def main() -> int:
         if n < 1:
             fail(f"kernel {name} was not launched on the serving path")
     launches.update(serve_launches)
-    r = record["serving"]
-    from repro_torch.configs.base import get_config
-    layers = get_config("phi3-mini-3.8b").num_layers
-    replicas = int(SERVE_ARGS[SERVE_ARGS.index("--replicas") + 1])
-    want = layers * (r["prefills"] + replicas)      # requests + warm-ups
-    if serve_launches["flash_attention"] != want or r["prefills"] != r["n"]:
-        fail(f"phi3 serving: flash_attention launched "
-             f"{serve_launches['flash_attention']} times, expected {layers} "
-             f"x ({r['prefills']} prefills + {replicas} warm-ups) = {want} "
-             f"for {r['n']} requests")
-    want = layers * (r["decode_steps"] + replicas)   # one per warm-up
-    if serve_launches["decode_attention"] != want:
-        fail(f"phi3 serving: decode_attention launched "
-             f"{serve_launches['decode_attention']} times, expected "
-             f"{layers} x ({r['decode_steps']} decode steps + {replicas} "
-             f"warm-ups) = {want}")
-    print(f"serving phi3-mini-3.8b: {r['n']} requests, p50 "
-          f"{r['p50_ms']:.1f} ms, p95 {r['p95_ms']:.1f} ms, p99 "
-          f"{r['p99_ms']:.1f} ms, TTFT p50 {r['ttft_p50_ms']:.1f} ms, "
-          f"decode step {r['decode_step_ms']:.2f} ms, "
-          f"{r['tokens_per_s']:.1f} tokens/s", flush=True)
+    check_attention_serving(SERVE_ARGS, record["serving"], serve_launches)
 
     # ---- main path 3, serving mamba2-1.3b at full width --------------------
     for k in all_kernels:
@@ -1763,6 +1836,7 @@ def main() -> int:
     mamba_launches = {k.__name__: k.launches for k in all_kernels}
     print(f"launches on the mamba2 serving path: {mamba_launches}",
           flush=True)
+    from repro_torch.configs.base import get_config
     layers = get_config("mamba2-1.3b").num_layers
     replicas = int(MAMBA_SERVE_ARGS[MAMBA_SERVE_ARGS.index("--replicas")
                                     + 1])
@@ -1779,6 +1853,21 @@ def main() -> int:
           f"prefill {r['prefill_ms']:.2f} ms, decode step "
           f"{r['decode_step_ms']:.2f} ms, {r['tokens_per_s']:.1f} tokens/s",
           flush=True)
+
+    # ---- main path 3b, serving gemma3-12b at full width and depth ----------
+    for k in all_kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    record["serving_gemma3"] = run_serving(GEMMA_SERVE_ARGS)
+    gemma_launches = {k.__name__: k.launches for k in all_kernels}
+    print(f"launches on the gemma3-12b serving path: {gemma_launches}",
+          flush=True)
+    check_attention_serving(GEMMA_SERVE_ARGS, record["serving_gemma3"],
+                            gemma_launches)
+    for k in attention_kernels:
+        launches[k.__name__] += gemma_launches[k.__name__]
+    record["serving_gemma3_launches"] = gemma_launches
+    torch.cuda.empty_cache()
 
     # ---- main path 4, control on real phi3 replicas at full width ----------
     record["engine_control"], ec_launches = run_engine_control(

@@ -1,14 +1,16 @@
 """Where the time of one serving engine step goes, on the card.
 
-    python3 scripts/serving_breakdown.py [--arch phi3-mini-3.8b|mamba2-1.3b]
+    python3 scripts/serving_breakdown.py
+        [--arch phi3-mini-3.8b|mamba2-1.3b|gemma3-12b]
         [--device cuda|cpu] [--smoke] [--layers N] [--steps N]
 
 Builds ``--arch`` (phi3-mini-3.8b by default) at full width (random
 weights from a seed, bf16, as ``launch.serve`` serves it; ``--layers``
 cuts the depth, ``--smoke`` takes the CPU-test config) in one
 ``InferenceEngine`` with the serving run's shape (``chip_smoke.py``: max
-batch 4, 32 new tokens, 128-token prompts for phi3 and 512-token ones
-for mamba2), fills its four slots, and reports:
+batch 4, 32 new tokens, 128-token prompts for phi3, 512-token ones for
+mamba2 and 1100-token ones for gemma3, past its 1024-token window),
+fills its four slots, and reports:
 
 * the host-clock time of a prefill and of a batch-4 decode step (median
   of ``--steps``; every step ends with the tokens read back to the host,
@@ -26,7 +28,7 @@ for mamba2), fills its four slots, and reports:
   memory rate.
 
 The record goes to ``chiprun_out/serving_breakdown.json``
-(``serving_breakdown_mamba2-1.3b.json`` for mamba2).  cProfile
+(``serving_breakdown_<arch>.json`` for the other archs).  cProfile
 adds a cost per Python call, so its phase times are shares, not
 absolutes: the step times are taken with profiling off.
 """
@@ -52,11 +54,12 @@ import torch  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 NEW, MAX_BATCH = 32, 4
 #: the prompt length of each arch's serving run in chip_smoke.py
-PROMPT = {"phi3-mini-3.8b": 128, "mamba2-1.3b": 512}
+PROMPT = {"phi3-mini-3.8b": 128, "mamba2-1.3b": 512, "gemma3-12b": 1100}
 #: (module suffix, function) of the port whose cumulative time is a phase
 PHASES = {
     ("models/layers.py", "apply_norm"): "norms",
     ("models/attention.py", "_proj_qkv"): "qkv projection",
+    ("models/layers.py", "rms_norm"): "qk norms (inside the qkv projection)",
     ("models/layers.py", "rope"): "rope",
     ("kernels/ops.py", "decode_attention"): "attention (wrapper + kernel)",
     ("models/attention.py", "_out_proj"): "output projection",

@@ -14,9 +14,9 @@ Trimmed copy of ``repro.core.profiles``:
 * ``BatchScheduler``, the prefill-priority continuous-batching op
   sequencer the simulator's batched servers drive.
 
-``BatchedService`` has no ``from_arch`` here: calibrating it from a
-model's roofline needs the model stack and the card's own figures,
-which this package does not carry yet.
+``BatchedService.from_arch`` calibrates the batched service from a
+registered architecture's parameter count on the H100's datasheet
+figures (``repro_torch.launch.mesh``).
 """
 from __future__ import annotations
 

@@ -2,8 +2,13 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-mini-3.8b \\
       --replicas 2 --qps 4 --duration 10 --prompt-len 128 --max-new 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \\
+      --replicas 2 --qps 2 --duration 10 --prompt-len 1100 --max-new 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-mini-3.8b \\
       --smoke --device cpu --duration 3
+
+``--arch`` is any architecture the port registers: phi3-mini-3.8b,
+gemma3-12b, stablelm-3b, command-r-35b, mamba2-1.3b.
 
 Real wall-clock serving of a real model (random weights drawn from
 ``--seed``, shared by every replica) driven by open-loop clients — the

@@ -143,9 +143,12 @@ def embed_specs(cfg: ArchConfig) -> dict:
 
 
 def embed_tokens(cfg: ArchConfig, p: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """The token rows of the embedding; gemma scales them by
+    ``sqrt(d_model)`` rounded to their dtype, as the JAX package does (a
+    Python number: no host tensor is built on each call)."""
     x = p["tokens"][tokens.long()]
     if cfg.name.startswith("gemma"):
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+        x = x * _rounded(math.sqrt(cfg.d_model), x.dtype)
     return x
 
 

@@ -3,9 +3,13 @@
 Copy of ``repro.models.registry`` in PyTorch.  Batch dicts:
   prefill: {"tokens": (B, S)}
   decode:  tokens (B,), positions (B,) + cache
-The dense attention family (phi3) and the Mamba-2 family (mamba2) run;
-modality frontends and encoder-decoder models are not ported yet, and
-neither are the layer kinds ``transformer._check_kind`` refuses.
+The dense attention family (phi3; gemma3 with its sliding-window
+layers, qk-norm and scaled embedding; stablelm with LayerNorm and
+partial rotary; command-r with parallel blocks) and the Mamba-2 family
+(mamba2) run; modality frontends and encoder-decoder models are not
+ported yet, and neither are MoE layers (``transformer._check_kind``).
+A model with tied embeddings (gemma3, command-r) has no ``unembed``
+entry: the logits read the embedding table.
 Everything runs where the parameters lie: on the card through the CUDA
 attention and SSD kernels, on the CPU through their plain versions.
 """
@@ -62,7 +66,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 
 
 def count_params(cfg: ArchConfig, active: bool = False) -> int:
-    """Parameter count; ``active=True`` counts those one token reads.
+    """Parameter count of ``model_specs`` (tied embeddings counted once),
+    as the JAX package's; ``active=True`` counts those one token reads.
     For the dense and Mamba families the port runs, every parameter is
     active, so both counts are the total; an MoE config (its routed
     experts read ``top_k`` of ``num_experts``) raises until MoE is

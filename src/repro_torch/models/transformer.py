@@ -1,19 +1,23 @@
 """Decoder stack assembly: pattern groups of blocks, run group by group.
 
 Copy of ``repro.models.transformer`` in PyTorch for the dense attention
-and Mamba-2 stacks.  Parameters and caches are stacked along a leading
-group axis, as in the JAX package; where JAX scans over that axis
-(``lax.scan``), the port runs a Python loop over groups and hands each
-block views of its group's slices.  The ``ATTN`` and ``MAMBA`` layer
-kinds with a dense MLP (or none, ``d_ff = 0``) are ported:
-sliding-window attention, MoE, parallel blocks and cross attention
-raise ``NotImplementedError``.
+and Mamba-2 stacks.  A model is ``embed -> groups -> final_norm``,
+where one group is one repetition of ``cfg.resolved_pattern`` (gemma3:
+5 sliding-window + 1 global attention layer).  Parameters and caches
+are stacked along a leading group axis, as in the JAX package; where
+JAX scans over that axis (``lax.scan``), the port runs a Python loop
+over groups and hands each block views of its group's slices.  The
+``ATTN``, ``ATTN_SWA`` and ``MAMBA`` layer kinds with a dense MLP (or
+none, ``d_ff = 0``), sequential or parallel (command-r: ``x + attn(h) +
+mlp(h)``), are ported; an ``ATTN_SWA`` layer attends over the last
+``cfg.sliding_window`` positions and keeps a ring of that many cache
+slots.  MoE and cross attention raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ATTN, MAMBA, ArchConfig
+from repro_torch.configs.base import ATTN, ATTN_SWA, MAMBA, ArchConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models.layers import apply_mlp, apply_norm, mlp_specs, norm_specs
@@ -21,15 +25,18 @@ from repro_torch.models.param import stack_specs, tree_map
 
 
 def _check_kind(cfg: ArchConfig, pos: int, kind: str) -> None:
-    if kind not in (ATTN, MAMBA):
+    if kind not in (ATTN, ATTN_SWA, MAMBA):
         raise NotImplementedError(f"layer kind {kind!r} ({cfg.name}) is not "
                                   f"ported yet")
     if cfg.moe is not None and cfg.moe_positions and pos in cfg.moe_positions:
         raise NotImplementedError(f"MoE layers ({cfg.name}) are not ported "
                                   f"yet")
-    if cfg.parallel_block:
-        raise NotImplementedError(f"parallel blocks ({cfg.name}) are not "
-                                  f"ported yet")
+
+
+def _window(cfg: ArchConfig, kind: str):
+    """The attention window of a layer kind: ``cfg.sliding_window`` for
+    ``ATTN_SWA``, None (the whole prefix) otherwise."""
+    return cfg.sliding_window if kind == ATTN_SWA else None
 
 
 # ---------------------------------------------------------------------------
@@ -43,7 +50,8 @@ def block_specs(cfg: ArchConfig, pos: int, kind: str) -> dict:
     else:
         out["attn"] = attn_mod.attention_specs(cfg)
     if cfg.d_ff > 0:
-        out["norm2"] = norm_specs(cfg)
+        if not cfg.parallel_block:
+            out["norm2"] = norm_specs(cfg)
         out["mlp"] = mlp_specs(cfg)
     return out
 
@@ -59,7 +67,8 @@ def cache_specs_for_kind(cfg: ArchConfig, kind: str, batch: int,
     _check_kind(cfg, -1, kind)
     if kind == MAMBA:
         return mamba_mod.mamba_cache_specs(cfg, batch)
-    return attn_mod.make_kv_cache_specs(cfg, batch, max_len)
+    return attn_mod.make_kv_cache_specs(cfg, batch, max_len,
+                                        window=_window(cfg, kind))
 
 
 def stack_cache_specs(cfg: ArchConfig, batch: int, max_len: int) -> dict:
@@ -77,9 +86,17 @@ def group_slice(tree: dict, g: int) -> dict:
 # ---------------------------------------------------------------------------
 # Block application
 # ---------------------------------------------------------------------------
-def _ffn(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    if "norm2" not in p:
-        return x
+def _residual(cfg: ArchConfig, p: dict, x: torch.Tensor, h: torch.Tensor,
+              mix: torch.Tensor) -> torch.Tensor:
+    """The block's output from its input ``x``, the ``norm1`` output ``h``
+    and the mixer's output ``mix``: ``x + mix + mlp(h)`` for a parallel
+    block; otherwise ``x + mix``, then ``+ mlp(norm2(.))`` where the
+    block has an MLP."""
+    if "mlp" not in p:
+        return x + mix
+    if cfg.parallel_block:
+        return x + mix + apply_mlp(cfg, p["mlp"], h)
+    x = x + mix
     return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
 
 
@@ -93,9 +110,10 @@ def apply_block_seq(cfg: ArchConfig, p: dict, kind: str, x: torch.Tensor, *,
         mix, payload = mamba_mod.apply_mamba(cfg, p["mamba"], h)
     else:
         mix, k, v = attn_mod.self_attention(cfg, p["attn"], h,
-                                            positions=positions, causal=True)
+                                            positions=positions, causal=True,
+                                            window=_window(cfg, kind))
         payload = (k, v)
-    return _ffn(cfg, p, x + mix), payload
+    return _residual(cfg, p, x, h, mix), payload
 
 
 def apply_block_decode(cfg: ArchConfig, p: dict, kind: str, x: torch.Tensor,
@@ -107,8 +125,9 @@ def apply_block_decode(cfg: ArchConfig, p: dict, kind: str, x: torch.Tensor,
     else:
         mix, _ = attn_mod.decode_self_attention(cfg, p["attn"], h, cache,
                                                 positions=positions,
-                                                lengths=positions + 1)
-    return _ffn(cfg, p, x + mix)
+                                                lengths=positions + 1,
+                                                window=_window(cfg, kind))
+    return _residual(cfg, p, x, h, mix)
 
 
 # ---------------------------------------------------------------------------
@@ -139,7 +158,7 @@ def run_stack_prefill(cfg: ArchConfig, groups: dict, x: torch.Tensor, *,
                                          positions=positions)
             caches[f"pos{i}"] = (payload if kind == MAMBA else
                                  _prefill_cache(*payload, positions,
-                                                max_len))
+                                                max_len, _window(cfg, kind)))
         per_group.append(caches)
     stacked = {name: {leaf: torch.stack([c[name][leaf] for c in per_group])
                       for leaf in per_group[0][name]}
@@ -148,13 +167,16 @@ def run_stack_prefill(cfg: ArchConfig, groups: dict, x: torch.Tensor, *,
 
 
 def _prefill_cache(k: torch.Tensor, v: torch.Tensor,
-                   positions: torch.Tensor, max_len: int) -> dict:
-    """The decode cache entry of one full-attention block from its
-    prefill K/V: bf16, padded to ``max_len`` with empty (-1) slots, or,
-    when the prompt is longer, its last ``max_len`` tokens placed at
-    slot ``position % max_len``."""
+                   positions: torch.Tensor, max_len: int,
+                   window=None) -> dict:
+    """The decode cache entry of one attention block from its prefill
+    K/V, ``size = min(max_len, window)`` slots (``max_len`` without a
+    window), as ``make_kv_cache_specs`` sizes it: bf16, padded to
+    ``size`` with empty (-1) slots, or, when the prompt is longer (a
+    sliding-window layer's ring), its last ``size`` tokens placed at
+    slot ``position % size``."""
     b, s = k.shape[:2]
-    size = max_len
+    size = min(max_len, window) if window else max_len
     pos = torch.broadcast_to(positions.to(torch.int32), (b, s))
     if size >= s:
         pad = size - s

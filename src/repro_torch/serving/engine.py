@@ -3,9 +3,11 @@
 Copy of ``repro.serving.engine`` in PyTorch.  Slot-based: ``max_batch``
 sequences decode together; free slots are refilled by prefilling queued
 prompts (prompt lengths are bucket-padded, as the reference does to
-bound its jit recompiles, except for models with Mamba layers, which
-prefill at the prompt's exact length: a Mamba state would absorb the
-pads).  Step-driven so the TailBench++
+bound its jit recompiles, except for models with Mamba or
+sliding-window layers, which prefill at the prompt's exact length: a
+Mamba state would absorb the pads, and a prompt padded past the window
+would put pad tokens in the ring and drop real keys).  Step-driven so
+the TailBench++
 harness can drive it in real time: each ``step()`` performs one prefill
 (if a request is waiting and a slot is free) or one batched decode
 step, and returns completion events.
@@ -34,7 +36,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import MAMBA, ArchConfig
+from repro_torch.configs.base import ATTN_SWA, MAMBA, ArchConfig
 from repro_torch.core.profiles import BatchScheduler, apply_service_noise
 from repro_torch.models import param as P
 from repro_torch.models import registry as R
@@ -263,8 +265,10 @@ class InferenceEngine:
                                   device=self.device)
         self.active: list[Optional[Request]] = [None] * max_batch
         self.queue: list[Request] = []
-        # a mamba state needs exact-length prefill (no pads)
-        self._exact_prefill = MAMBA in cfg.resolved_pattern
+        # a mamba state or a sliding-window ring needs exact-length
+        # prefill (no pads)
+        self._exact_prefill = any(k in (MAMBA, ATTN_SWA)
+                                  for k in cfg.resolved_pattern)
         self.completed: list[Completion] = []
         self.reset_counters()
 

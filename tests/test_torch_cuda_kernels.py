@@ -293,6 +293,12 @@ def _within(kern, plain, v, tol=ATTN_TOL):
     (2, 1, 1, 2, 2, 96, True, None),       # one query, one key
     (2, 2048, 2048, 2, 2, 96, True, None),  # the K/V ring wraps 16 times
     (3, 70, 200, 8, 2, 128, True, None),   # B = 3, GQA, S < T
+    # the served shapes of gemma3-12b (its SWA and global layers, a
+    # prompt past the window), stablelm-3b (hd 80) and command-r-35b
+    (1, 1100, 1100, 16, 8, 256, True, 1024),
+    (1, 1100, 1100, 16, 8, 256, True, None),
+    (1, 128, 128, 32, 32, 80, True, None),
+    (1, 128, 128, 64, 8, 128, True, None),
 ])
 @pytest.mark.parametrize("dtype", ["bf16", "f32"])
 def test_flash_attention_kernel_close_to_plain(cuda, B, S, T, H, KV, hd,
@@ -327,6 +333,9 @@ def test_flash_attention_kernel_close_to_plain(cuda, B, S, T, H, KV, hd,
     (2, 64, 16, 1, 64, 24),                # MQA (G = 16), ring + window
     (2, 90, 4, 2, 100, None),              # hd % 8 != 0: element loads
     (4, 1024, 16, 8, 256, 1024),           # gemma3-12b, ring + window
+    (4, 1164, 16, 8, 256, None),           # gemma3-12b's global layer
+    (4, 160, 32, 32, 80, None),            # stablelm-3b
+    (4, 192, 64, 8, 128, None),            # command-r-35b
 ])
 @pytest.mark.parametrize("block_t", [None, "T", 40, 16])
 @pytest.mark.parametrize("q_dtype", ["bf16", "f32"])

@@ -338,8 +338,11 @@ def test_engine_prefills_mamba_at_exact_length(monkeypatch):
 
 def test_not_ported_layer_kinds_still_raise():
     cfg = get_config(ARCH)
-    for bad in (replace(cfg, pattern=("mamba", "attn_swa")),
-                replace(cfg, parallel_block=True)):
+    from repro_torch.configs.base import MoEConfig
+    for bad in (replace(cfg, pattern=("mamba", "attn"),
+                        moe=MoEConfig(num_experts=4, top_k=2),
+                        moe_positions=(1,)),
+                replace(cfg, pattern=("mamba", "enc_attn"))):
         with pytest.raises(NotImplementedError, match="not ported"):
             R.model_specs(bad)
 

@@ -81,7 +81,7 @@ def test_config_is_the_reference_config():
                   "resolved_pattern"):
             assert getattr(port, f) == getattr(ref, f), (name, f)
     with pytest.raises(KeyError, match="not ported"):
-        get_config("gemma3-12b")
+        get_config("deepseek-moe-16b")
 
 
 def test_count_params_full_width():
@@ -209,9 +209,12 @@ def test_mlp_activation_rounds_as_jax(act):
 
 def test_not_ported_model_parts_raise():
     from dataclasses import replace
+
+    from repro_torch.configs.base import MoEConfig
     cfg = get_config(ARCH)
-    for bad in (replace(cfg, pattern=("attn_swa",)),
-                replace(cfg, parallel_block=True),
+    for bad in (replace(cfg, moe=MoEConfig(num_experts=4, top_k=2),
+                        moe_positions=(0,)),
+                replace(cfg, pattern=("enc_attn",)),
                 replace(cfg, enc_dec=True, num_encoder_layers=2),
                 replace(cfg, embed_frontend="patch")):
         with pytest.raises(NotImplementedError, match="not ported"):
