@@ -5,8 +5,8 @@
 Drives the port's main paths on the card, the vector grid runtime (the
 canonical grids and the chaos grids, whose timelines the control
 pre-pass shapes) and real-model serving of dense attention models
-(phi3-mini-3.8b, and gemma3-12b with its sliding-window layers) and of
-a Mamba-2 model (mamba2-1.3b):
+(phi3-mini-3.8b, and gemma3-12b with its sliding-window layers), of an
+MoE model (deepseek-moe-16b) and of a Mamba-2 model (mamba2-1.3b):
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
@@ -75,10 +75,15 @@ a Mamba-2 model (mamba2-1.3b):
    ``MAMBA_BF16_LOGIT_TOL``; then gemma3-12b at 6 layers (one group: 5
    sliding-window layers and a global one) with an 1100-token prompt,
    past its 1024-token window, so the prefill fills the ring and the
-   decode writes into the wrapped ring, and stablelm-3b and
-   command-r-35b at 2 layers with 128-token prompts
-   (``FULL_WIDTH_CHECKS``: phi3's tolerances, gemma3's f32 one widened
-   to ``GEMMA_F32_LOGIT_TOL``); each model is freed before the next;
+   decode writes into the wrapped ring, and stablelm-3b,
+   command-r-35b and the MoE models deepseek-moe-16b (64 experts, top-6,
+   2 shared) and mixtral-8x22b (8 experts, top-2, sliding window) at 2
+   layers with 128-token prompts (``FULL_WIDTH_CHECKS``: phi3's
+   tolerances, the f32 one widened to ``GEMMA_F32_LOGIT_TOL`` for gemma3
+   and ``DEEPSEEK_F32_LOGIT_TOL`` for deepseek); for
+   an MoE model the share of router choices (layer, token, k) that the
+   card and the CPU agree on is recorded; each model is freed before the
+   next;
 6. serves phi3-mini-3.8b and then mamba2-1.3b at full width through
    ``repro_torch.launch.serve.main`` (2 replicas sharing one copy of the
    weights, open-loop clients, 10 s each), checks that every request
@@ -92,6 +97,12 @@ a Mamba-2 model (mamba2-1.3b):
    (``GEMMA_SERVE_ARGS``): every request must complete, with
    ``flash_attention`` launched 48 times a prefill and
    ``decode_attention`` 48 times a decode step (warm-ups included);
+6d. serves deepseek-moe-16b at full width and full depth (28 MoE
+   layers, 16.9 B parameters, 33.8 GB in bf16) the same way, with
+   serve-phi3's flags (``DEEPSEEK_SERVE_ARGS``): every request must
+   complete, with ``flash_attention`` launched 28 times a prefill and
+   ``decode_attention`` 28 times a decode step (warm-ups included); the
+   card's peak memory after the weights' initialisation is recorded;
 6b. drives the closed loop and the retry path on real phi3-mini-3.8b
    replicas at full width (``run_experiment_on_real_engines``, as
    ``launch.serve --scenario`` runs it): ``flash-crowd-autoscale`` with 2
@@ -183,6 +194,18 @@ MAMBA_BF16_LOGIT_TOL = 3e-2
 #: f32 ulp 1.583e-3 (scripts/full_width_sensitivity.py; H100 80GB HBM3,
 #: 700 W); tokens equal.  bf16: 4 logit rounding steps, as for phi3
 GEMMA_F32_LOGIT_TOL = 3e-3
+#: the same for deepseek-moe-16b at full width, 2 layers, a 128-token
+#: prompt.  f32: the prefill's logits agree to 1.8e-6 and the card and
+#: the CPU make the same router choice at every (layer, token, k), but one
+#: decode step of 9 read 3.961e-3 (the others <= 5.0e-4): a bf16 K/V
+#: cache entry rounded apart, in a model whose std-1/sqrt(2) matrices
+#: make attention scores so large that one bf16 step moves the output;
+#: the CPU against itself with every weight moved by one f32 ulp reads
+#: 8.165e-3, the plain versions on the card 5.003e-4
+#: (scripts/full_width_sensitivity.py --arch deepseek-moe-16b --layers 2
+#: --prompt 128; H100 80GB HBM3, 700.00 W); tokens equal.  bf16: 4 logit
+#: rounding steps, as for phi3 (the card read 1.515e-2)
+DEEPSEEK_F32_LOGIT_TOL = 1e-2
 #: SSD kernel vs plain version: both widen the same values to f32 and
 #: differ only by the order of f32 sums and FMA contraction, whatever the
 #: input dtype, so every case is held to the f32 rule of
@@ -217,7 +240,14 @@ GEMMA_SERVE_MAX_LEN = GEMMA_PROMPT + 32 + 32
 FULL_WIDTH_CHECKS = [
     ("gemma3-12b", 6, GEMMA_PROMPT, GEMMA_F32_LOGIT_TOL, BF16_LOGIT_TOL),
     ("stablelm-3b", 2, 128, F32_LOGIT_TOL, BF16_LOGIT_TOL),
-    ("command-r-35b", 2, 128, F32_LOGIT_TOL, BF16_LOGIT_TOL)]
+    ("command-r-35b", 2, 128, F32_LOGIT_TOL, BF16_LOGIT_TOL),
+    ("deepseek-moe-16b", 2, 128, DEEPSEEK_F32_LOGIT_TOL, BF16_LOGIT_TOL),
+    ("mixtral-8x22b", 2, 128, F32_LOGIT_TOL, BF16_LOGIT_TOL)]
+#: serve-phi3's flags for deepseek-moe-16b at full depth (step 6d)
+DEEPSEEK_SERVE_ARGS = ["--arch", "deepseek-moe-16b", "--replicas", "2",
+                       "--max-batch", "4", "--prompt-len", "128",
+                       "--max-new", "32", "--clients", "2", "--qps", "2",
+                       "--duration", "10", "--policy", "jsq", "--seed", "0"]
 #: the decode cache length of that run (make_warmed_engine: prompt + new
 #: tokens + 32) and the prefill bucket of its 128-token prompts
 SERVE_MAX_LEN = 128 + 32 + 32
@@ -600,7 +630,7 @@ def library_time(fn):
 #: buckets and the bucket the serving run uses, one GQA case with a
 #: sliding window, and the served prefills of gemma3-12b (its
 #: sliding-window and global layers at the 1100-token prompt),
-#: stablelm-3b and command-r-35b; all causal
+#: stablelm-3b, command-r-35b and deepseek-moe-16b; all causal
 FLASH_CASES = [
     ("phi3 S=32", 1, 32, 32, 32, 96, None),
     ("phi3 S=128 (served bucket)", 1, SERVE_BUCKET, 32, 32, 96, None),
@@ -611,6 +641,7 @@ FLASH_CASES = [
     ("gemma3-12b global S=1100", 1, GEMMA_PROMPT, 16, 8, 256, None),
     ("stablelm-3b S=128", 1, 128, 32, 32, 80, None),
     ("command-r-35b S=128", 1, 128, 64, 8, 128, None),
+    ("deepseek-moe-16b S=128 (served bucket)", 1, 128, 16, 16, 128, None),
 ]
 
 
@@ -665,14 +696,16 @@ def check_flash(device, label, B, S, H, KV, hd, window) -> dict:
 #: (label, B, T, H, KV, hd, window, ring): the serving run's decode
 #: (max batch 4, T = its cache length), one ring/window case, gemma3-12b's
 #: decode shapes (its 1024-slot sliding-window ring, and its global
-#: layers' cache in the serving run) and the served shape at batch 1, as
-#: a lightly loaded replica runs it
+#: layers' cache in the serving run), the served shape at batch 1, as
+#: a lightly loaded replica runs it, and deepseek-moe-16b's served decode
 DECODE_CASES = [
     ("phi3 serving B=4 T=192", 4, SERVE_MAX_LEN, 32, 32, 96, None, False),
     ("ring+window B=4 T=512", 4, 512, 32, 8, 128, 384, True),
     ("gemma3-12b B=4 T=1024 ring", 4, 1024, 16, 8, 256, 1024, True),
     ("phi3 B=1 T=192", 1, SERVE_MAX_LEN, 32, 32, 96, None, False),
     ("gemma3-12b global B=4 T=1164", 4, GEMMA_SERVE_MAX_LEN, 16, 8, 256,
+     None, False),
+    ("deepseek-moe-16b serving B=4 T=192", 4, SERVE_MAX_LEN, 16, 16, 128,
      None, False),
 ]
 
@@ -885,6 +918,30 @@ def greedy(cfg, params, prompt, max_len: int, steps: int, forced=None):
     return torch.cat(out), toks
 
 
+def with_routes(fn):
+    """-> (fn(), the top-k choices of every MoE router call fn made, on
+    the CPU): two runs of one model fed the same tokens make their router
+    calls in the same order."""
+    from repro_torch.models import moe
+    real, routes = moe._router, []
+
+    def spy(cfg, p, x):
+        out = real(cfg, p, x)
+        routes.append(out[0].cpu())
+        return out
+    moe._router = spy
+    try:
+        return fn(), routes
+    finally:
+        moe._router = real
+
+
+def routes_agree(a, b) -> float:
+    """The share of (layer, token, k) router choices equal in two runs."""
+    same = sum(int((x == y).sum()) for x, y in zip(a, b, strict=True))
+    return same / sum(x.numel() for x in a)
+
+
 def check_full_width(device, arch: str = "phi3-mini-3.8b",
                      prompt_len: int = 128, f32_tol: float = F32_LOGIT_TOL,
                      bf16_tol: float = BF16_LOGIT_TOL,
@@ -916,6 +973,23 @@ def check_full_width(device, arch: str = "phi3-mini-3.8b",
                           head_dim=cfg.resolved_head_dim,
                           pattern=list(cfg.resolved_pattern),
                           window=cfg.sliding_window)
+    if cfg.moe is not None:
+        rec["cfg"].update(experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+                          shared=cfg.moe.num_shared_experts,
+                          expert_d_ff=cfg.moe.expert_d_ff or cfg.d_ff)
+
+    def run(*args, **kw):
+        """greedy(...) and, for an MoE model, its router choices."""
+        if cfg.moe is None:
+            return greedy(*args, **kw), None
+        return with_routes(lambda: greedy(*args, **kw))
+
+    def agree(cpu_routes, card_routes, key):
+        if cfg.moe is not None:
+            rec[key]["routes_agree"] = routes_agree(cpu_routes, card_routes)
+            print(f"full width {arch} {key}: card and CPU router choices "
+                  f"agree on {rec[key]['routes_agree']:.6f} of (layer, "
+                  f"token, k)", flush=True)
 
     def rel_steps(a, b):
         return ((a - b).abs().max(-1).values / b.abs().max(-1).values)
@@ -926,10 +1000,10 @@ def check_full_width(device, arch: str = "phi3-mini-3.8b",
     # f32 weights: greedy on each side, the tokens must be equal
     p32 = P.tree_map(lambda t: t.float(), params)
     t0 = time.perf_counter()
-    cpu_l, cpu_t = greedy(cfg, p32, prompt, max_len, steps)
+    (cpu_l, cpu_t), cpu_r = run(cfg, p32, prompt, max_len, steps)
     cpu_s = time.perf_counter() - t0
-    gpu_l, gpu_t = greedy(cfg, P.tree_map(lambda t: t.to(device), p32),
-                          prompt.to(device), max_len, steps)
+    (gpu_l, gpu_t), gpu_r = run(cfg, P.tree_map(lambda t: t.to(device), p32),
+                                prompt.to(device), max_len, steps)
     err32 = rel(gpu_l, cpu_l)
     top2 = cpu_l.topk(2, dim=-1).values
     margin = ((top2[:, 0] - top2[:, 1]) / cpu_l.abs().max(-1).values).min()
@@ -941,6 +1015,8 @@ def check_full_width(device, arch: str = "phi3-mini-3.8b",
     print(f"full width {arch} f32: tokens cpu {cpu_t} card {gpu_t}, logits "
           f"rel err {err32:.3e} (smallest top-2 gap {margin.item():.3e})",
           flush=True)
+    if gpu_t == cpu_t:
+        agree(cpu_r, gpu_r, "f32")
     if gpu_t != cpu_t:
         fail(f"full width {arch} f32: greedy tokens differ between card "
              f"and CPU")
@@ -949,21 +1025,23 @@ def check_full_width(device, arch: str = "phi3-mini-3.8b",
              f"{f32_tol}")
     # the served bf16 weights: the card follows the CPU's tokens
     t0 = time.perf_counter()
-    cpu_l, cpu_t = greedy(cfg, params, prompt, max_len, steps)
+    (cpu_l, cpu_t), cpu_r = run(cfg, params, prompt, max_len, steps)
     cpu16_s = time.perf_counter() - t0
-    gpu_l, gpu_t = greedy(cfg, P.tree_map(lambda t: t.to(device), params),
-                          prompt.to(device), max_len, steps,
-                          forced=cpu_t[:-1])
+    (gpu_l, gpu_t), gpu_r = run(cfg, P.tree_map(lambda t: t.to(device),
+                                                params),
+                                prompt.to(device), max_len, steps,
+                                forced=cpu_t[:-1])
     err16 = rel(gpu_l, cpu_l)
-    agree = sum(a == b for a, b in zip(cpu_t, gpu_t))
+    same = sum(a == b for a, b in zip(cpu_t, gpu_t))
     rec["bf16"] = {"cpu_tokens": cpu_t, "card_argmax": gpu_t,
-                   "argmax_agree": agree, "logits_rel_err": err16,
+                   "argmax_agree": same, "logits_rel_err": err16,
                    "logits_rel_err_per_step": rel_steps(gpu_l,
                                                         cpu_l).tolist(),
                    "tol": bf16_tol, "cpu_s": cpu16_s}
     print(f"full width {arch} bf16 (card fed the CPU's tokens): argmax "
-          f"agrees at {agree} of {steps + 1} steps, logits rel err "
+          f"agrees at {same} of {steps + 1} steps, logits rel err "
           f"{err16:.3e}", flush=True)
+    agree(cpu_r, gpu_r, "bf16")
     if not err16 <= bf16_tol:
         fail(f"full width {arch} bf16: logits rel err {err16:.3e} > "
              f"{bf16_tol}")
@@ -1020,6 +1098,49 @@ def check_attention_serving(args, report, launches) -> None:
           f"prefill {r['prefill_ms']:.2f} ms, decode step "
           f"{r['decode_step_ms']:.2f} ms, {r['tokens_per_s']:.1f} tokens/s, "
           f"{r['phase_s']:.1f} s", flush=True)
+
+
+def run_moe_serving(kernels) -> tuple:
+    """Step 6d: deepseek-moe-16b served at full width and full depth
+    (``DEEPSEEK_SERVE_ARGS``), with the card's memory read right after
+    the weights' initialisation (``init_params`` wrapped for the run):
+    the peak while ``init_tree`` drew them and what they hold.
+    -> (report, launches of ``kernels``)."""
+    import gc
+
+    from repro_torch.models import registry as R
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k in kernels:
+        k.launches = 0
+    real, mem = R.init_params, {}
+    held = torch.cuda.memory_allocated()
+
+    def init_and_measure(*args, **kw):
+        t0 = time.perf_counter()
+        params = real(*args, **kw)
+        torch.cuda.synchronize()
+        mem.update(init_s=time.perf_counter() - t0,
+                   held_before_gb=held / 1e9,
+                   init_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   weights_gb=(torch.cuda.memory_allocated() - held) / 1e9)
+        return params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    R.init_params = init_and_measure
+    try:
+        report = run_serving(DEEPSEEK_SERVE_ARGS)
+    finally:
+        R.init_params = real
+    report.update(mem)
+    launches = {k.__name__: k.launches for k in kernels}
+    print(f"launches on the deepseek-moe-16b serving path: {launches}",
+          flush=True)
+    print(f"serving deepseek-moe-16b: init {mem['init_s']:.1f} s, peak "
+          f"{mem['init_peak_gb']:.2f} GB at init ({mem['held_before_gb']:.2f}"
+          f" GB held before), weights {mem['weights_gb']:.2f} GB", flush=True)
+    check_attention_serving(DEEPSEEK_SERVE_ARGS, report, launches)
+    return report, launches
 
 
 def fleet_saturation(engines, vocab: int, clock=time.monotonic,
@@ -1867,6 +1988,13 @@ def main() -> int:
     for k in attention_kernels:
         launches[k.__name__] += gemma_launches[k.__name__]
     record["serving_gemma3_launches"] = gemma_launches
+    torch.cuda.empty_cache()
+
+    # ---- main path 3c, serving deepseek-moe-16b at full width and depth ----
+    record["serving_deepseek"], ds_launches = run_moe_serving(all_kernels)
+    for k in attention_kernels:
+        launches[k.__name__] += ds_launches[k.__name__]
+    record["serving_deepseek_launches"] = ds_launches
     torch.cuda.empty_cache()
 
     # ---- main path 4, control on real phi3 replicas at full width ----------

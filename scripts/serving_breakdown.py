@@ -1,15 +1,16 @@
 """Where the time of one serving engine step goes, on the card.
 
     python3 scripts/serving_breakdown.py
-        [--arch phi3-mini-3.8b|mamba2-1.3b|gemma3-12b]
+        [--arch phi3-mini-3.8b|mamba2-1.3b|gemma3-12b|deepseek-moe-16b]
         [--device cuda|cpu] [--smoke] [--layers N] [--steps N]
 
 Builds ``--arch`` (phi3-mini-3.8b by default) at full width (random
 weights from a seed, bf16, as ``launch.serve`` serves it; ``--layers``
 cuts the depth, ``--smoke`` takes the CPU-test config) in one
 ``InferenceEngine`` with the serving run's shape (``chip_smoke.py``: max
-batch 4, 32 new tokens, 128-token prompts for phi3, 512-token ones for
-mamba2 and 1100-token ones for gemma3, past its 1024-token window),
+batch 4, 32 new tokens, 128-token prompts for phi3 and deepseek-moe,
+512-token ones for mamba2 and 1100-token ones for gemma3, past its
+1024-token window),
 fills its four slots, and reports:
 
 * the host-clock time of a prefill and of a batch-4 decode step (median
@@ -18,14 +19,16 @@ fills its four slots, and reports:
 * the host phases of the decode steps, from ``cProfile`` (cumulative
   seconds of the port's own functions: norms, projections, RoPE, the
   attention wrapper, the MLP, for mamba2 the mixer's projections, conv
-  steps and output, the unembedding, the read-back; the rest of the step
+  steps and output, for deepseek-moe the MoE layer with its router and
+  expert products, the unembedding, the read-back; the rest of the step
   total is the cache write, the residual adds and the embedding);
 * on the card, the device time of the decode steps and of a prefill by
   kernel group (attention and SSD kernels, matrix products, the rest)
   from ``torch.profiler``, the kernels launched per step and the
   device's busy share of the step's wall time;
 * the decode step's bound: the bf16 weights read once, over the card's
-  memory rate.
+  memory rate (for an MoE model every expert bank: the dispatch form
+  runs every expert on its capacity slots, filled or not).
 
 The record goes to ``chiprun_out/serving_breakdown.json``
 (``serving_breakdown_<arch>.json`` for the other archs).  cProfile
@@ -54,7 +57,8 @@ import torch  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 NEW, MAX_BATCH = 32, 4
 #: the prompt length of each arch's serving run in chip_smoke.py
-PROMPT = {"phi3-mini-3.8b": 128, "mamba2-1.3b": 512, "gemma3-12b": 1100}
+PROMPT = {"phi3-mini-3.8b": 128, "mamba2-1.3b": 512, "gemma3-12b": 1100,
+          "deepseek-moe-16b": 128}
 #: (module suffix, function) of the port whose cumulative time is a phase
 PHASES = {
     ("models/layers.py", "apply_norm"): "norms",
@@ -68,6 +72,9 @@ PHASES = {
     ("models/mamba.py", "_conv_step"): "mamba conv steps",
     ("models/mamba.py", "_out"): "mamba gate, norm, output projection",
     ("models/mamba.py", "decode_mamba"): "mamba mixer (total)",
+    ("models/moe.py", "apply_moe"): "moe (total)",
+    ("models/moe.py", "_router"): "moe router",
+    ("models/moe.py", "_expert_ffn"): "moe expert products",
     ("models/layers.py", "unembed"): "unembedding",
     ("serving/engine.py", "_decode_once"): "step total",
 }

@@ -4,7 +4,8 @@ Copy of ``repro.configs.base``: the layer kinds, ``MoEConfig``,
 ``MambaConfig`` and ``ArchConfig`` with ``smoke()``, and the registry.
 Only the architectures whose layers the port runs are registered
 (``phi3-mini-3.8b``, ``gemma3-12b``, ``stablelm-3b``, ``command-r-35b``,
-``mamba2-1.3b``); any other name raises ``KeyError``.  The shape cells
+``mamba2-1.3b``, and the MoE models ``deepseek-moe-16b`` and
+``mixtral-8x22b``); any other name raises ``KeyError``.  The shape cells
 of the TPU dry-run are not part of this package.
 """
 from __future__ import annotations
@@ -154,8 +155,10 @@ def register(cfg: ArchConfig) -> ArchConfig:
 
 def _populate() -> None:
     import repro_torch.configs.command_r_35b  # noqa: F401  (registers)
+    import repro_torch.configs.deepseek_moe_16b  # noqa: F401
     import repro_torch.configs.gemma3_12b  # noqa: F401
     import repro_torch.configs.mamba2_1_3b  # noqa: F401
+    import repro_torch.configs.mixtral_8x22b  # noqa: F401
     import repro_torch.configs.phi3_mini_3_8b  # noqa: F401
     import repro_torch.configs.stablelm_3b  # noqa: F401
 

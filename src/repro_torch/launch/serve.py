@@ -4,11 +4,15 @@
       --replicas 2 --qps 4 --duration 10 --prompt-len 128 --max-new 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \\
       --replicas 2 --qps 2 --duration 10 --prompt-len 1100 --max-new 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b \\
+      --replicas 2 --qps 2 --duration 10 --prompt-len 128 --max-new 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-mini-3.8b \\
       --smoke --device cpu --duration 3
 
 ``--arch`` is any architecture the port registers: phi3-mini-3.8b,
-gemma3-12b, stablelm-3b, command-r-35b, mamba2-1.3b.
+gemma3-12b, stablelm-3b, command-r-35b, mamba2-1.3b, and the MoE models
+deepseek-moe-16b (16.9 B parameters, 33.8 GB in bf16: one card holds it)
+and mixtral-8x22b (140.6 B: one card holds its ``--smoke`` form only).
 
 Real wall-clock serving of a real model (random weights drawn from
 ``--seed``, shared by every replica) driven by open-loop clients — the

@@ -75,7 +75,9 @@ def init_tree(tree, generator: torch.Generator, device=None) -> dict:
                                                                       1))
         x = torch.randn(s.shape, generator=generator, dtype=torch.float32,
                         device=generator.device)
-        return (x * std).to(s.dtype).to(device)
+        # scaled in place: one f32 copy of the leaf at a time (deepseek's
+        # stacked expert bank is 5.2 G values, 20.7 GB in f32)
+        return x.mul_(std).to(s.dtype).to(device)
 
     out: dict = {}
     for path, s in leaves(tree):

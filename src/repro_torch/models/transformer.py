@@ -1,17 +1,19 @@
 """Decoder stack assembly: pattern groups of blocks, run group by group.
 
-Copy of ``repro.models.transformer`` in PyTorch for the dense attention
-and Mamba-2 stacks.  A model is ``embed -> groups -> final_norm``,
+Copy of ``repro.models.transformer`` in PyTorch for the dense attention,
+MoE and Mamba-2 stacks.  A model is ``embed -> groups -> final_norm``,
 where one group is one repetition of ``cfg.resolved_pattern`` (gemma3:
 5 sliding-window + 1 global attention layer).  Parameters and caches
 are stacked along a leading group axis, as in the JAX package; where
 JAX scans over that axis (``lax.scan``), the port runs a Python loop
 over groups and hands each block views of its group's slices.  The
-``ATTN``, ``ATTN_SWA`` and ``MAMBA`` layer kinds with a dense MLP (or
-none, ``d_ff = 0``), sequential or parallel (command-r: ``x + attn(h) +
-mlp(h)``), are ported; an ``ATTN_SWA`` layer attends over the last
-``cfg.sliding_window`` positions and keeps a ring of that many cache
-slots.  MoE and cross attention raise ``NotImplementedError``.
+``ATTN``, ``ATTN_SWA`` and ``MAMBA`` layer kinds are ported, each with
+a dense MLP (or none, ``d_ff = 0``) or, at ``cfg.moe_positions``, an
+MoE FFN (``models/moe.py``; ``moe_impl`` picks its dispatch or dense
+form), sequential or parallel (command-r: ``x + attn(h) + mlp(h)``); an
+``ATTN_SWA`` layer attends over the last ``cfg.sliding_window``
+positions and keeps a ring of that many cache slots.  Other layer kinds
+(cross attention, the encoder's) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -20,17 +22,15 @@ import torch
 from repro_torch.configs.base import ATTN, ATTN_SWA, MAMBA, ArchConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import apply_mlp, apply_norm, mlp_specs, norm_specs
 from repro_torch.models.param import stack_specs, tree_map
 
 
-def _check_kind(cfg: ArchConfig, pos: int, kind: str) -> None:
+def _check_kind(cfg: ArchConfig, kind: str) -> None:
     if kind not in (ATTN, ATTN_SWA, MAMBA):
         raise NotImplementedError(f"layer kind {kind!r} ({cfg.name}) is not "
                                   f"ported yet")
-    if cfg.moe is not None and cfg.moe_positions and pos in cfg.moe_positions:
-        raise NotImplementedError(f"MoE layers ({cfg.name}) are not ported "
-                                  f"yet")
 
 
 def _window(cfg: ArchConfig, kind: str):
@@ -43,16 +43,21 @@ def _window(cfg: ArchConfig, kind: str):
 # Specs
 # ---------------------------------------------------------------------------
 def block_specs(cfg: ArchConfig, pos: int, kind: str) -> dict:
-    _check_kind(cfg, pos, kind)
+    _check_kind(cfg, kind)
     out = {"norm1": norm_specs(cfg)}
     if kind == MAMBA:
         out["mamba"] = mamba_mod.mamba_specs(cfg)
     else:
         out["attn"] = attn_mod.attention_specs(cfg)
-    if cfg.d_ff > 0:
+    is_moe = (cfg.moe is not None and cfg.moe_positions
+              and pos in cfg.moe_positions)
+    if cfg.d_ff > 0 or is_moe:
         if not cfg.parallel_block:
             out["norm2"] = norm_specs(cfg)
-        out["mlp"] = mlp_specs(cfg)
+        if is_moe:
+            out["moe"] = moe_mod.moe_specs(cfg)
+        else:
+            out["mlp"] = mlp_specs(cfg)
     return out
 
 
@@ -64,7 +69,7 @@ def stack_block_specs(cfg: ArchConfig, pattern, n_groups: int) -> dict:
 
 def cache_specs_for_kind(cfg: ArchConfig, kind: str, batch: int,
                          max_len: int) -> dict:
-    _check_kind(cfg, -1, kind)
+    _check_kind(cfg, kind)
     if kind == MAMBA:
         return mamba_mod.mamba_cache_specs(cfg, batch)
     return attn_mod.make_kv_cache_specs(cfg, batch, max_len,
@@ -86,22 +91,29 @@ def group_slice(tree: dict, g: int) -> dict:
 # ---------------------------------------------------------------------------
 # Block application
 # ---------------------------------------------------------------------------
+def _ffn(cfg: ArchConfig, p: dict, x: torch.Tensor,
+         moe_impl: str) -> torch.Tensor:
+    if "moe" in p:
+        return moe_mod.apply_moe(cfg, p["moe"], x, impl=moe_impl)
+    return apply_mlp(cfg, p["mlp"], x)
+
+
 def _residual(cfg: ArchConfig, p: dict, x: torch.Tensor, h: torch.Tensor,
-              mix: torch.Tensor) -> torch.Tensor:
+              mix: torch.Tensor, moe_impl: str) -> torch.Tensor:
     """The block's output from its input ``x``, the ``norm1`` output ``h``
-    and the mixer's output ``mix``: ``x + mix + mlp(h)`` for a parallel
-    block; otherwise ``x + mix``, then ``+ mlp(norm2(.))`` where the
-    block has an MLP."""
-    if "mlp" not in p:
+    and the mixer's output ``mix``: ``x + mix + ffn(h)`` for a parallel
+    block; otherwise ``x + mix``, then ``+ ffn(norm2(.))`` where the
+    block has an FFN (its MLP or its MoE)."""
+    if "mlp" not in p and "moe" not in p:
         return x + mix
     if cfg.parallel_block:
-        return x + mix + apply_mlp(cfg, p["mlp"], h)
+        return x + mix + _ffn(cfg, p, h, moe_impl)
     x = x + mix
-    return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+    return x + _ffn(cfg, p, apply_norm(cfg, p["norm2"], x), moe_impl)
 
 
 def apply_block_seq(cfg: ArchConfig, p: dict, kind: str, x: torch.Tensor, *,
-                    positions: torch.Tensor):
+                    positions: torch.Tensor, moe_impl: str = "dispatch"):
     """-> (x, payload): the block's output and what its decode cache is
     built from: the rotated ``(k, v)`` of an attention block; the cache
     itself (final SSD state and conv tails) of a Mamba block."""
@@ -113,11 +125,12 @@ def apply_block_seq(cfg: ArchConfig, p: dict, kind: str, x: torch.Tensor, *,
                                             positions=positions, causal=True,
                                             window=_window(cfg, kind))
         payload = (k, v)
-    return _residual(cfg, p, x, h, mix), payload
+    return _residual(cfg, p, x, h, mix, moe_impl), payload
 
 
 def apply_block_decode(cfg: ArchConfig, p: dict, kind: str, x: torch.Tensor,
-                       cache: dict, *, positions: torch.Tensor):
+                       cache: dict, *, positions: torch.Tensor,
+                       moe_impl: str = "dispatch"):
     """x: (B, D) single token; ``cache`` updated in place."""
     h = apply_norm(cfg, p["norm1"], x)
     if kind == MAMBA:
@@ -127,25 +140,27 @@ def apply_block_decode(cfg: ArchConfig, p: dict, kind: str, x: torch.Tensor,
                                                 positions=positions,
                                                 lengths=positions + 1,
                                                 window=_window(cfg, kind))
-    return _residual(cfg, p, x, h, mix)
+    return _residual(cfg, p, x, h, mix, moe_impl)
 
 
 # ---------------------------------------------------------------------------
 # Stack runners (a loop over groups)
 # ---------------------------------------------------------------------------
 def run_stack_seq(cfg: ArchConfig, groups: dict, x: torch.Tensor, *,
-                  positions: torch.Tensor) -> torch.Tensor:
+                  positions: torch.Tensor,
+                  moe_impl: str = "dispatch") -> torch.Tensor:
     pattern = cfg.resolved_pattern
     for g in range(cfg.n_groups):
         gp = group_slice(groups, g)
         for i, kind in enumerate(pattern):
             x, _ = apply_block_seq(cfg, gp[f"pos{i}"], kind, x,
-                                   positions=positions)
+                                   positions=positions, moe_impl=moe_impl)
     return x
 
 
 def run_stack_prefill(cfg: ArchConfig, groups: dict, x: torch.Tensor, *,
-                      positions: torch.Tensor, max_len: int):
+                      positions: torch.Tensor, max_len: int,
+                      moe_impl: str = "dispatch"):
     """Like ``run_stack_seq``, and also the decode cache of every block,
     stacked by group as ``stack_cache_specs`` lays it out."""
     pattern = cfg.resolved_pattern
@@ -155,7 +170,8 @@ def run_stack_prefill(cfg: ArchConfig, groups: dict, x: torch.Tensor, *,
         caches = {}
         for i, kind in enumerate(pattern):
             x, payload = apply_block_seq(cfg, gp[f"pos{i}"], kind, x,
-                                         positions=positions)
+                                         positions=positions,
+                                         moe_impl=moe_impl)
             caches[f"pos{i}"] = (payload if kind == MAMBA else
                                  _prefill_cache(*payload, positions,
                                                 max_len, _window(cfg, kind)))
@@ -195,7 +211,8 @@ def _prefill_cache(k: torch.Tensor, v: torch.Tensor,
 
 
 def run_stack_decode(cfg: ArchConfig, groups: dict, x: torch.Tensor,
-                     cache: dict, *, positions: torch.Tensor):
+                     cache: dict, *, positions: torch.Tensor,
+                     moe_impl: str = "dispatch"):
     """One decode step through every group; ``cache`` is updated in
     place and returned."""
     pattern = cfg.resolved_pattern
@@ -203,5 +220,6 @@ def run_stack_decode(cfg: ArchConfig, groups: dict, x: torch.Tensor,
         gp, gc = group_slice(groups, g), group_slice(cache, g)
         for i, kind in enumerate(pattern):
             x = apply_block_decode(cfg, gp[f"pos{i}"], kind, x,
-                                   gc[f"pos{i}"], positions=positions)
+                                   gc[f"pos{i}"], positions=positions,
+                                   moe_impl=moe_impl)
     return x, cache

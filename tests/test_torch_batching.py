@@ -256,4 +256,4 @@ def test_batched_serving_arch_builds_from_hopper_roofline():
     assert rt.telemetry.overall().n > 0
     # an architecture the port does not register still raises
     with pytest.raises(KeyError, match="not ported yet"):
-        tsc.get("batched-serving", arch="deepseek-moe-16b")
+        tsc.get("batched-serving", arch="jamba-1.5-large-398b")

@@ -339,9 +339,9 @@ def test_engine_prefills_mamba_at_exact_length(monkeypatch):
 def test_not_ported_layer_kinds_still_raise():
     cfg = get_config(ARCH)
     from repro_torch.configs.base import MoEConfig
-    for bad in (replace(cfg, pattern=("mamba", "attn"),
+    for bad in (replace(cfg, pattern=("enc_attn", "mamba"),
                         moe=MoEConfig(num_experts=4, top_k=2),
-                        moe_positions=(1,)),
+                        moe_positions=(0,)),
                 replace(cfg, pattern=("mamba", "enc_attn"))):
         with pytest.raises(NotImplementedError, match="not ported"):
             R.model_specs(bad)

@@ -73,15 +73,23 @@ def _rel(got: torch.Tensor, want) -> float:
 
 
 def test_config_is_the_reference_config():
-    for name in ("phi3-mini-3.8b", ARCH):
+    from dataclasses import asdict
+    for name in ("phi3-mini-3.8b", ARCH, "deepseek-moe-16b",
+                 "mixtral-8x22b", "deepseek-moe-16b-smoke",
+                 "mixtral-8x22b-smoke"):
         port, ref = get_config(name), jax_config(name)
         for f in ("num_layers", "d_model", "num_heads", "num_kv_heads",
                   "d_ff", "vocab_size", "resolved_head_dim", "rope_theta",
                   "rope_fraction", "norm", "glu", "act", "tie_embeddings",
-                  "resolved_pattern"):
+                  "resolved_pattern", "sliding_window", "moe_positions",
+                  "family", "sub_quadratic", "notes"):
             assert getattr(port, f) == getattr(ref, f), (name, f)
-    with pytest.raises(KeyError, match="not ported"):
-        get_config("deepseek-moe-16b")
+        assert (port.moe is None) == (ref.moe is None), name
+        if port.moe is not None:
+            assert asdict(port.moe) == asdict(ref.moe), name
+    for name in ("jamba-1.5-large-398b", "whisper-small"):
+        with pytest.raises(KeyError, match="not ported"):
+            get_config(name)
 
 
 def test_count_params_full_width():
@@ -212,8 +220,9 @@ def test_not_ported_model_parts_raise():
 
     from repro_torch.configs.base import MoEConfig
     cfg = get_config(ARCH)
-    for bad in (replace(cfg, moe=MoEConfig(num_experts=4, top_k=2),
-                        moe_positions=(0,)),
+    for bad in (replace(cfg, pattern=("attn", "enc_attn"), num_layers=4,
+                        moe=MoEConfig(num_experts=4, top_k=2),
+                        moe_positions=(1,)),
                 replace(cfg, pattern=("enc_attn",)),
                 replace(cfg, enc_dec=True, num_encoder_layers=2),
                 replace(cfg, embed_frontend="patch")):
