@@ -5,8 +5,10 @@
 Drives the port's main paths on the card, the vector grid runtime (the
 canonical grids and the chaos grids, whose timelines the control
 pre-pass shapes) and real-model serving of dense attention models
-(phi3-mini-3.8b, and gemma3-12b with its sliding-window layers), of an
-MoE model (deepseek-moe-16b) and of a Mamba-2 model (mamba2-1.3b):
+(phi3-mini-3.8b, gemma3-12b with its sliding-window layers, and
+llava-next-mistral-7b), of an MoE model (deepseek-moe-16b), of a
+Mamba-2 model (mamba2-1.3b) and of the hybrid jamba-1.5-large's
+Mamba/attention/MoE layers, and runs the encoder-decoder whisper-small:
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
@@ -80,10 +82,17 @@ MoE model (deepseek-moe-16b) and of a Mamba-2 model (mamba2-1.3b):
    2 shared) and mixtral-8x22b (8 experts, top-2, sliding window) at 2
    layers with 128-token prompts (``FULL_WIDTH_CHECKS``: phi3's
    tolerances, the f32 one widened to ``GEMMA_F32_LOGIT_TOL`` for gemma3
-   and ``DEEPSEEK_F32_LOGIT_TOL`` for deepseek); for
-   an MoE model the share of router choices (layer, token, k) that the
-   card and the CPU agree on is recorded; each model is freed before the
-   next;
+   and ``DEEPSEEK_F32_LOGIT_TOL`` for deepseek); then the cut of
+   jamba-1.5-large's pattern group that one card holds (``JAMBA_CUT``:
+   attention with its dense MLP, then Mamba with the 16-expert MoE FFN,
+   11.9 B parameters, drawn on the card) with a 384-token prompt,
+   whisper-small at full depth (12 encoder and 12 decoder layers) over
+   1500 seeded frames with a 64-token prompt, so that every decode step
+   runs cross attention over all 1500 encoder positions, and
+   llava-next-mistral-7b at 2 layers behind a 2880-patch image prefix
+   (a 3008-long prefill; ``LLAVA_F32_LOGIT_TOL``); for an MoE model the
+   share of router choices (layer, token, k) that the card and the CPU
+   agree on is recorded; each model is freed before the next;
 6. serves phi3-mini-3.8b and then mamba2-1.3b at full width through
    ``repro_torch.launch.serve.main`` (2 replicas sharing one copy of the
    weights, open-loop clients, 10 s each), checks that every request
@@ -103,6 +112,17 @@ MoE model (deepseek-moe-16b) and of a Mamba-2 model (mamba2-1.3b):
    complete, with ``flash_attention`` launched 28 times a prefill and
    ``decode_attention`` 28 times a decode step (warm-ups included); the
    card's peak memory after the weights' initialisation is recorded;
+6e. serves llava-next-mistral-7b at full width and full depth (32
+   layers, 7.2 B parameters) the same way, with serve-phi3's flags
+   (``LLAVA_SERVE_ARGS``: token prompts, as the JAX package's engine
+   serves this arch): ``flash_attention`` 32 times a prefill,
+   ``decode_attention`` 32 times a decode step;
+6f. runs the jamba cut on one ``InferenceEngine`` (max batch 4): 8
+   prompts of 512 tokens (two scan chunks), 16 new tokens each; every
+   request must complete, with ``ssd_scan`` and ``flash_attention``
+   launched once a prefill and ``decode_attention`` once a decode step
+   (the warm-up's included); prints the prefill and decode-step times
+   and the card's peak memory after the weights' initialisation;
 6b. drives the closed loop and the retry path on real phi3-mini-3.8b
    replicas at full width (``run_experiment_on_real_engines``, as
    ``launch.serve --scenario`` runs it): ``flash-crowd-autoscale`` with 2
@@ -206,6 +226,28 @@ GEMMA_F32_LOGIT_TOL = 3e-3
 #: --prompt 128; H100 80GB HBM3, 700.00 W); tokens equal.  bf16: 4 logit
 #: rounding steps, as for phi3 (the card read 1.515e-2)
 DEEPSEEK_F32_LOGIT_TOL = 1e-2
+#: whisper-small (full depth) and llava-next-mistral-7b (2 layers) run
+#: on weights drawn at ``layer_std_specs``' scales.  At the reference's
+#: draw (each stacked matrix at std 1/sqrt(its group count)) whisper's 24
+#: layers are chaotic: the CPU against itself with every f32 weight one
+#: ulp off reads 0.693-0.932 of max|logit| a step, the card 0.683-0.858
+#: with the kernels and 0.634-0.894 with the plain versions
+#: (scripts/full_width_sensitivity.py --check whisper-small
+#: --reference-draw; H100 80GB HBM3, 700.00 W), and no bound can be
+#: held; at the per-layer draw whisper's prefill
+#: agrees to 7.7e-7 and its decode steps, which read bf16 caches, to
+#: 7.50e-4 (plain versions on the card 7.37e-4, CPU one ulp off 7.13e-4:
+#: scripts/full_width_sensitivity.py --check whisper-small), under
+#: F32_LOGIT_TOL.  llava at the reference's draw (std 1/sqrt(2)) read
+#: 1.911e-2 on one decode step of 9, with the kernels and with the plain
+#: versions on the card alike (a bf16 K/V entry rounded apart under
+#: attention scores that large; the CPU one ulp off 3.244e-4 there:
+#: --reference-draw); at the per-layer draw every decode step
+#: reads 6.8e-4-1.052e-3 with the kernels, 7.2e-4-9.85e-4 with the plain
+#: versions on the card and 4.8e-4-8.05e-4 on the CPU one ulp off
+#: (--check llava-next-mistral-7b): the bf16 caches' rounding, not a
+#: kernel's, so its bound is 2e-3
+LLAVA_F32_LOGIT_TOL = 2e-3
 #: SSD kernel vs plain version: both widen the same values to f32 and
 #: differ only by the order of f32 sums and FMA contraction, whatever the
 #: input dtype, so every case is held to the f32 rule of
@@ -233,25 +275,64 @@ GEMMA_SERVE_ARGS = ["--arch", "gemma3-12b", "--replicas", "2",
                     "--duration", "10", "--policy", "jsq", "--seed", "0"]
 #: gemma3-12b's decode cache length in that run (make_warmed_engine)
 GEMMA_SERVE_MAX_LEN = GEMMA_PROMPT + 32 + 32
-#: the full-width checks of step 5 after phi3 and mamba2: (arch, layers,
-#: prompt tokens, f32 and bf16 logit tolerances).  gemma3's 6 layers are
-#: one pattern group (5 sliding-window layers and a global one); its
-#: prompt is longer than the window
+#: the cut of jamba-1.5-large-398b's pattern group that one card holds at
+#: full width: its positions 4 and 5, attention with the dense MLP
+#: (d_ff 24576), then Mamba (128 heads of 128, d_state 128) with the MoE
+#: FFN (16 experts of d_ff 24576, top-2); 11,898,463,872 parameters,
+#: 23.8 GB in bf16 (one group of 8 layers is 90.3 GB)
+JAMBA_CUT = dict(num_layers=2, pattern=("attn", "mamba"), moe_positions=(1,))
+#: whisper-small's encoder input: 1500 frames, its 30-second window
+WHISPER_FRAMES = 1500
+#: llava-next-mistral-7b's anyres image prefix: a 2x2 grid of 336-pixel
+#: tiles and the base image, 5 x 576 patches
+LLAVA_PATCHES = 5 * 576
+#: the full-width checks of step 5 after phi3 and mamba2 (keyword
+#: arguments of check_full_width).  gemma3's 6 layers are one pattern
+#: group (5 sliding-window layers and a global one); its prompt is longer
+#: than the window.  jamba's cut is drawn on the card (its 11.9 G draws
+#: take ~80 s on the host's generator) and copied to the host; its f32
+#: run keeps the expert banks in bf16 (moe_specs' dtype), which halves
+#: the host's second copy; its 384-token prompt crosses the scan's
+#: 256-step chunk.  whisper-small runs at full depth (12 encoder and 12
+#: decoder layers) over 1500 frames, llava at 2 layers behind the
+#: 2880-patch prefix (a 3008-long prefill), both on weights drawn at
+#: ``layer_std_specs``' scales (see LLAVA_F32_LOGIT_TOL)
 FULL_WIDTH_CHECKS = [
-    ("gemma3-12b", 6, GEMMA_PROMPT, GEMMA_F32_LOGIT_TOL, BF16_LOGIT_TOL),
-    ("stablelm-3b", 2, 128, F32_LOGIT_TOL, BF16_LOGIT_TOL),
-    ("command-r-35b", 2, 128, F32_LOGIT_TOL, BF16_LOGIT_TOL),
-    ("deepseek-moe-16b", 2, 128, DEEPSEEK_F32_LOGIT_TOL, BF16_LOGIT_TOL),
-    ("mixtral-8x22b", 2, 128, F32_LOGIT_TOL, BF16_LOGIT_TOL)]
+    dict(arch="gemma3-12b", layers=6, prompt_len=GEMMA_PROMPT,
+         f32_tol=GEMMA_F32_LOGIT_TOL),
+    dict(arch="stablelm-3b"),
+    dict(arch="command-r-35b"),
+    dict(arch="deepseek-moe-16b", f32_tol=DEEPSEEK_F32_LOGIT_TOL),
+    dict(arch="mixtral-8x22b"),
+    dict(arch="jamba-1.5-large-398b", prompt_len=384, over=JAMBA_CUT,
+         draw_on_card=True, bf16_banks=True),
+    dict(arch="whisper-small", layers=None, prompt_len=64,
+         extra={"frames": (WHISPER_FRAMES, 128)}, layer_std=True),
+    dict(arch="llava-next-mistral-7b", f32_tol=LLAVA_F32_LOGIT_TOL,
+         extra={"patch_embeds": (LLAVA_PATCHES, 1024)}, layer_std=True)]
 #: serve-phi3's flags for deepseek-moe-16b at full depth (step 6d)
 DEEPSEEK_SERVE_ARGS = ["--arch", "deepseek-moe-16b", "--replicas", "2",
                        "--max-batch", "4", "--prompt-len", "128",
                        "--max-new", "32", "--clients", "2", "--qps", "2",
                        "--duration", "10", "--policy", "jsq", "--seed", "0"]
+#: serve-phi3's flags for llava-next-mistral-7b at full depth (step 6e):
+#: token prompts, as the JAX package's engine serves this arch
+LLAVA_SERVE_ARGS = ["--arch", "llava-next-mistral-7b", "--replicas", "2",
+                    "--max-batch", "4", "--prompt-len", "128",
+                    "--max-new", "32", "--clients", "2", "--qps", "2",
+                    "--duration", "10", "--policy", "jsq", "--seed", "0"]
 #: the decode cache length of that run (make_warmed_engine: prompt + new
 #: tokens + 32) and the prefill bucket of its 128-token prompts
 SERVE_MAX_LEN = 128 + 32 + 32
 SERVE_BUCKET = 128
+#: step 6f: the jamba cut on one engine, ``JAMBA_ENGINE_REQUESTS``
+#: prompts of ``JAMBA_ENGINE_PROMPT`` tokens (two scan chunks), each
+#: generating ``JAMBA_ENGINE_NEW`` tokens, max batch 4; its decode cache
+#: length (make_warmed_engine)
+JAMBA_ENGINE_REQUESTS = 8
+JAMBA_ENGINE_PROMPT = 512
+JAMBA_ENGINE_NEW = 16
+JAMBA_ENGINE_MAX_LEN = JAMBA_ENGINE_PROMPT + JAMBA_ENGINE_NEW + 32
 #: the engine-control phase (step 6b): the closed loop and the retry path
 #: on real phi3-mini-3.8b replicas at full width, the serving runs' shape
 #: (max batch 4, 128-token prompts, 32 new tokens).  Its saturation run
@@ -626,26 +707,41 @@ def library_time(fn):
         return None
 
 
-#: (label, B, S = T, H, KV, hd, window): phi3's prefill at three prompt
-#: buckets and the bucket the serving run uses, one GQA case with a
-#: sliding window, and the served prefills of gemma3-12b (its
-#: sliding-window and global layers at the 1100-token prompt),
-#: stablelm-3b, command-r-35b and deepseek-moe-16b; all causal
+#: (label, B, S, T, H, KV, hd, causal, window): phi3's prefill at three
+#: prompt buckets and the bucket the serving run uses, one GQA case with a
+#: sliding window, the served prefills of gemma3-12b (its sliding-window
+#: and global layers at the 1100-token prompt), stablelm-3b,
+#: command-r-35b and deepseek-moe-16b; whisper-small's encoder (over its
+#: 1500 frames) and cross attention (step 5's 64-token decoder prompt over
+#: them), both without a mask; llava's step-5 prefill behind its image
+#: prefix and the jamba cut's attention layer at step 6f's prompt
 FLASH_CASES = [
-    ("phi3 S=32", 1, 32, 32, 32, 96, None),
-    ("phi3 S=128 (served bucket)", 1, SERVE_BUCKET, 32, 32, 96, None),
-    ("phi3 S=512", 1, 512, 32, 32, 96, None),
-    ("phi3 S=2048", 1, 2048, 32, 32, 96, None),
-    ("gqa+window S=1024", 1, 1024, 32, 8, 128, 256),
-    ("gemma3-12b SWA S=1100", 1, GEMMA_PROMPT, 16, 8, 256, 1024),
-    ("gemma3-12b global S=1100", 1, GEMMA_PROMPT, 16, 8, 256, None),
-    ("stablelm-3b S=128", 1, 128, 32, 32, 80, None),
-    ("command-r-35b S=128", 1, 128, 64, 8, 128, None),
-    ("deepseek-moe-16b S=128 (served bucket)", 1, 128, 16, 16, 128, None),
+    ("phi3 S=32", 1, 32, 32, 32, 32, 96, True, None),
+    ("phi3 S=128 (served bucket)", 1, SERVE_BUCKET, SERVE_BUCKET, 32, 32, 96,
+     True, None),
+    ("phi3 S=512", 1, 512, 512, 32, 32, 96, True, None),
+    ("phi3 S=2048", 1, 2048, 2048, 32, 32, 96, True, None),
+    ("gqa+window S=1024", 1, 1024, 1024, 32, 8, 128, True, 256),
+    ("gemma3-12b SWA S=1100", 1, GEMMA_PROMPT, GEMMA_PROMPT, 16, 8, 256,
+     True, 1024),
+    ("gemma3-12b global S=1100", 1, GEMMA_PROMPT, GEMMA_PROMPT, 16, 8, 256,
+     True, None),
+    ("stablelm-3b S=128", 1, 128, 128, 32, 32, 80, True, None),
+    ("command-r-35b S=128", 1, 128, 128, 64, 8, 128, True, None),
+    ("deepseek-moe-16b S=128 (served bucket)", 1, 128, 128, 16, 16, 128,
+     True, None),
+    ("whisper-small encoder S=T=1500", 1, WHISPER_FRAMES, WHISPER_FRAMES,
+     12, 12, 64, False, None),
+    ("whisper-small cross S=64 T=1500", 1, 64, WHISPER_FRAMES, 12, 12, 64,
+     False, None),
+    ("llava S=3008", 1, LLAVA_PATCHES + 128, LLAVA_PATCHES + 128, 32, 8,
+     128, True, None),
+    ("jamba S=512", 1, JAMBA_ENGINE_PROMPT, JAMBA_ENGINE_PROMPT, 64, 8, 128,
+     True, None),
 ]
 
 
-def check_flash(device, label, B, S, H, KV, hd, window) -> dict:
+def check_flash(device, label, B, S, T, H, KV, hd, causal, window) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -655,9 +751,9 @@ def check_flash(device, label, B, S, H, KV, hd, window) -> dict:
     def rnd(*shape):
         return torch.randn(shape, generator=g, device=device
                            ).to(torch.bfloat16)
-    q, k, v = rnd(B, S, H, hd), rnd(B, S, KV, hd), rnd(B, S, KV, hd)
-    out = fa.flash_attention(q, k, v, causal=True, window=window)
-    plain = ref.flash_attention(q, k, v, causal=True, window=window)
+    q, k, v = rnd(B, S, H, hd), rnd(B, T, KV, hd), rnd(B, T, KV, hd)
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    plain = ref.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     if not torch.isfinite(out.float()).all():
         fail(f"flash_attention {label}: output not finite")
@@ -666,38 +762,44 @@ def check_flash(device, label, B, S, H, KV, hd, window) -> dict:
     if err > tol:
         fail(f"flash_attention {label}: |kernel - plain| {err:.3e} > "
              f"{tol:.3e}")
-    i = torch.arange(S, device=device)
-    ok = i[None, :] <= i[:, None]
+    i = torch.arange(S, device=device)[:, None]
+    j = torch.arange(T, device=device)[None, :]
+    ok = j <= i if causal else torch.ones((S, T), dtype=torch.bool,
+                                          device=device)
     if window is not None:
-        ok &= i[None, :] > i[:, None] - window
+        ok &= j > i - window
     pairs = int(ok.sum().item())                 # unmasked (query, key)
     bound_ms, bound_by = attention_bound(
         nbytes((q, k, v, out)), 4.0 * hd * pairs * H * B, BF16_OPS_PER_S)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     if window is None:
         def library():
-            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                            enable_gqa=True)
     else:
         def library():
             F.scaled_dot_product_attention(qt, kt, vt, attn_mask=ok,
                                            enable_gqa=True)
-    return {"shape": {"B": B, "S": S, "T": S, "H": H, "KV": KV, "hd": hd,
-                      "causal": True, "window": window},
+    return {"shape": {"B": B, "S": S, "T": T, "H": H, "KV": KV, "hd": hd,
+                      "causal": causal, "window": window},
             "max_abs_err": err, "tol": tol,
-            "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True,
+            "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
                                                      window=window)),
             "plain_ms": cuda_ms(lambda: ref.flash_attention(
-                q, k, v, causal=True, window=window)),
+                q, k, v, causal=causal, window=window)),
             "library_ms": library_time(library),
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-#: (label, B, T, H, KV, hd, window, ring): the serving run's decode
-#: (max batch 4, T = its cache length), one ring/window case, gemma3-12b's
-#: decode shapes (its 1024-slot sliding-window ring, and its global
-#: layers' cache in the serving run), the served shape at batch 1, as
-#: a lightly loaded replica runs it, and deepseek-moe-16b's served decode
+#: (label, B, T, H, KV, hd, window, ring[, positions]): the serving run's
+#: decode (max batch 4, T = its cache length), one ring/window case,
+#: gemma3-12b's decode shapes (its 1024-slot sliding-window ring, and its
+#: global layers' cache in the serving run), the served shape at batch 1,
+#: as a lightly loaded replica runs it, deepseek-moe-16b's and
+#: llava-next-mistral-7b's served decode, the jamba cut's at step 6f, and
+#: whisper-small's cross attention at decode: over its 1500 encoder
+#: positions with ``lengths`` only (``positions`` False: no key
+#: positions, no query position)
 DECODE_CASES = [
     ("phi3 serving B=4 T=192", 4, SERVE_MAX_LEN, 32, 32, 96, None, False),
     ("ring+window B=4 T=512", 4, 512, 32, 8, 128, 384, True),
@@ -707,10 +809,16 @@ DECODE_CASES = [
      None, False),
     ("deepseek-moe-16b serving B=4 T=192", 4, SERVE_MAX_LEN, 16, 16, 128,
      None, False),
+    ("whisper-small cross B=1 T=1500", 1, WHISPER_FRAMES, 12, 12, 64, None,
+     False, False),
+    ("llava serving B=4 T=192", 4, SERVE_MAX_LEN, 32, 8, 128, None, False),
+    (f"jamba B=4 T={JAMBA_ENGINE_MAX_LEN}", 4, JAMBA_ENGINE_MAX_LEN, 64, 8,
+     128, None, False),
 ]
 
 
-def check_decode(device, label, B, T, H, KV, hd, window, ring) -> dict:
+def check_decode(device, label, B, T, H, KV, hd, window, ring,
+                 positions=True) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention as da
@@ -736,6 +844,9 @@ def check_decode(device, label, B, T, H, KV, hd, window, ring) -> dict:
         lengths = T + r
     q_pos = lengths - 1
     kw = dict(lengths=lengths, key_positions=pos, q_pos=q_pos, window=window)
+    if not positions:        # the kernel's defaults: slot j at position j
+        kw = dict(lengths=lengths)
+        pos = torch.arange(T, dtype=torch.int32, device=device).repeat(B, 1)
     out = da.decode_attention(q, k, v, **kw)
     plain = ref.decode_attention(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -754,7 +865,7 @@ def check_decode(device, label, B, T, H, KV, hd, window, ring) -> dict:
     # head, and a row with no valid key every value (its mean)
     slot = KV * hd * k.element_size()
     empty = int((valid.sum(1) == 0).sum().item())
-    small = nbytes((q, out, lengths, pos, q_pos))
+    small = nbytes((q, out, lengths) + ((pos, q_pos) if positions else ()))
     bound_ms, bound_by = attention_bound(
         small + 2 * slot * keys + slot * T * empty,
         4.0 * hd * keys * H, BF16_OPS_PER_S)
@@ -770,6 +881,7 @@ def check_decode(device, label, B, T, H, KV, hd, window, ring) -> dict:
                                        enable_gqa=True)
     return {"shape": {"B": B, "T": T, "H": H, "KV": KV, "hd": hd,
                       "window": window, "ring": ring,
+                      "key_positions": positions,
                       "lengths": lengths.tolist()},
             "max_abs_err": err, "tol": tol,
             "ms": cuda_ms(lambda: da.decode_attention(q, k, v, **kw)),
@@ -901,12 +1013,16 @@ def check_ssd(device, label, b, s, h, p, n, chunk, dtype) -> dict:
     return rec
 
 
-def greedy(cfg, params, prompt, max_len: int, steps: int, forced=None):
-    """Prefill ``prompt`` (1, S) and decode ``steps`` tokens greedily, or
-    feeding ``forced`` tokens; -> (logits [steps + 1, V] f32 on the CPU,
-    own argmax tokens)."""
+def greedy(cfg, params, prompt, max_len: int, steps: int, forced=None,
+           extra=None):
+    """Prefill ``prompt`` (1, S), with the ``extra`` inputs of a model's
+    frontend (frames, patch embeddings), and decode ``steps`` tokens
+    greedily, or feeding ``forced`` tokens; -> (logits [steps + 1, V] f32
+    on the CPU, own argmax tokens)."""
     from repro_torch.models import registry as R
-    logits, cache, pos = R.prefill(cfg, params, {"tokens": prompt}, max_len)
+    batch = {"tokens": prompt}
+    batch.update({k: v.to(prompt.device) for k, v in (extra or {}).items()})
+    logits, cache, pos = R.prefill(cfg, params, batch, max_len)
     out, toks = [logits.float().cpu()], [int(logits.argmax(-1)[0])]
     for i in range(steps):
         feed = toks[-1] if forced is None else forced[i]
@@ -916,6 +1032,75 @@ def greedy(cfg, params, prompt, max_len: int, steps: int, forced=None):
         out.append(logits.float().cpu())
         toks.append(int(logits.argmax(-1)[0]))
     return torch.cat(out), toks
+
+
+def host_mem_total_gb() -> float:
+    """The host's ``MemTotal`` (``/proc/meminfo``), GB."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemTotal:"):
+            return int(line.split()[1]) * 1024 / 1e9
+    return math.nan
+
+
+def f32_tree(tree, bf16_banks: bool = False, path: tuple = ()):
+    """``tree`` in f32; with ``bf16_banks`` the routed expert banks (an
+    MoE block's ``wi_0``, ``wi_1``, ``wo``) stay bf16, the dtype
+    ``moe_specs`` gives them in any model, shared with ``tree`` (each
+    product promotes them to f32 as it reads them)."""
+    if isinstance(tree, dict):
+        return {k: f32_tree(v, bf16_banks, path + (k,))
+                for k, v in tree.items()}
+    if bf16_banks and "moe" in path and "shared" not in path \
+            and path[-1] in ("wi_0", "wi_1", "wo"):
+        return tree
+    return tree.float()
+
+
+def layer_std_specs(tree, stacked: bool = False):
+    """A model's spec tree with each stacked matrix of its layer groups
+    drawn at the std ``init_tree`` gives one layer's matrix, 1 / sqrt of
+    its first per-layer dim, in place of 1 / sqrt of the group count."""
+    if isinstance(tree, dict):
+        return {k: layer_std_specs(v, stacked or k in ("groups",
+                                                       "enc_groups"))
+                for k, v in tree.items()}
+    if stacked and tree.init == "normal" and tree.scale is None:
+        return dataclasses.replace(tree, scale=tree.shape[1] ** -0.5)
+    return tree
+
+
+def full_width_model(arch: str, layers=2, prompt_len: int = 128, over=None,
+                     extra=None, draw_on_card: bool = False,
+                     layer_std: bool = False):
+    """Step 5's model and inputs: ``arch`` at full width, ``layers`` deep
+    (None: the config's depth), with ``over`` replaced in its config; the
+    bf16 weights of seed 0 on the host (drawn on the card and copied with
+    ``draw_on_card``; with ``layer_std`` at ``layer_std_specs``' scales);
+    a ``prompt_len``-token prompt of seed 1; the ``extra`` inputs {name:
+    shape a row} drawn with numpy from seed 2.
+    -> (cfg, params, prompt, extra tensors, decode cache length)."""
+    from dataclasses import replace
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import param as P
+    from repro_torch.models import registry as R
+    kw = {} if layers is None else {"num_layers": layers}
+    kw.update(over or {})
+    cfg = replace(get_config(arch), **kw)
+    gen = torch.Generator(device="cuda" if draw_on_card else "cpu")
+    specs = R.model_specs(cfg)
+    params = P.init_tree(layer_std_specs(specs) if layer_std else specs,
+                         gen.manual_seed(0), device="cpu")
+    prompt = torch.randint(0, cfg.vocab_size, (1, prompt_len),
+                           dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(1))
+    g = np.random.default_rng(2)
+    inputs = {k: torch.from_numpy(g.standard_normal((1,) + tuple(shape))
+                                  .astype(np.float32))
+              for k, shape in (extra or {}).items()}
+    seq = prompt_len + (inputs["patch_embeds"].shape[1]
+                        if "patch_embeds" in inputs else 0)
+    return cfg, params, prompt, inputs, seq + 8 + 32
 
 
 def with_routes(fn):
@@ -944,42 +1129,54 @@ def routes_agree(a, b) -> float:
 
 def check_full_width(device, arch: str = "phi3-mini-3.8b",
                      prompt_len: int = 128, f32_tol: float = F32_LOGIT_TOL,
-                     bf16_tol: float = BF16_LOGIT_TOL,
-                     layers: int = 2) -> dict:
-    """``arch`` at full width, ``layers`` deep: the same seeded weights
-    on the CPU (plain versions) and on the card (kernels)."""
-    from dataclasses import replace
-
-    from repro_torch.configs.base import get_config
+                     bf16_tol: float = BF16_LOGIT_TOL, layers=2, over=None,
+                     extra=None, draw_on_card: bool = False,
+                     bf16_banks: bool = False,
+                     layer_std: bool = False) -> dict:
+    """``arch`` at full width (``full_width_model``): the same seeded
+    weights on the CPU (plain versions) and on the card (kernels)."""
     from repro_torch.models import param as P
     from repro_torch.models import registry as R
     t_phase = time.perf_counter()
-    cfg = replace(get_config(arch), num_layers=layers)
-    params = R.init_params(cfg, torch.Generator().manual_seed(0))
-    prompt = torch.randint(0, cfg.vocab_size, (1, prompt_len),
-                           dtype=torch.int32,
-                           generator=torch.Generator().manual_seed(1))
-    steps, max_len = 8, prompt_len + 8 + 32
+    cfg, params, prompt, inputs, max_len = full_width_model(
+        arch, layers, prompt_len, over, extra, draw_on_card, layer_std)
+    steps = 8
     rec = {"cfg": {"name": cfg.name, "num_layers": cfg.num_layers,
+                   "pattern": list(cfg.resolved_pattern),
                    "d_model": cfg.d_model, "vocab": cfg.vocab_size,
                    "params": R.count_params(cfg)},
-           "prompt": prompt_len, "steps": steps}
+           "prompt": prompt_len, "steps": steps, "max_len": max_len,
+           "inputs": {k: list(v.shape) for k, v in inputs.items()},
+           "drawn_on": "card" if draw_on_card else "host",
+           "layer_std": layer_std,
+           "f32_expert_banks": "bf16" if bf16_banks else "f32",
+           "host_mem_total_gb": host_mem_total_gb()}
+    print(f"full width {arch}: host MemTotal "
+          f"{rec['host_mem_total_gb']:.1f} GB, {cfg.num_layers} layers "
+          f"{list(cfg.resolved_pattern)}, {rec['cfg']['params']:,} "
+          f"parameters drawn on the {rec['drawn_on']}, inputs "
+          f"{rec['inputs'] or 'tokens'}, f32 run with {rec['f32_expert_banks']}"
+          f" expert banks", flush=True)
     if cfg.mamba is not None:
         m = cfg.mamba
-        rec["cfg"].update(heads=m.n_heads(cfg.d_model), head_dim=m.head_dim,
-                          d_state=m.d_state, chunk=m.chunk)
-    else:
+        rec["cfg"].update(mamba_heads=m.n_heads(cfg.d_model),
+                          mamba_head_dim=m.head_dim, d_state=m.d_state,
+                          chunk=m.chunk)
+    if any(k != "mamba" for k in cfg.resolved_pattern):
         rec["cfg"].update(heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
                           head_dim=cfg.resolved_head_dim,
-                          pattern=list(cfg.resolved_pattern),
                           window=cfg.sliding_window)
+    if cfg.enc_dec:
+        rec["cfg"]["encoder_layers"] = cfg.num_encoder_layers
     if cfg.moe is not None:
         rec["cfg"].update(experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
                           shared=cfg.moe.num_shared_experts,
-                          expert_d_ff=cfg.moe.expert_d_ff or cfg.d_ff)
+                          expert_d_ff=cfg.moe.expert_d_ff or cfg.d_ff,
+                          active_params=R.count_params(cfg, active=True))
 
     def run(*args, **kw):
         """greedy(...) and, for an MoE model, its router choices."""
+        kw["extra"] = inputs
         if cfg.moe is None:
             return greedy(*args, **kw), None
         return with_routes(lambda: greedy(*args, **kw))
@@ -998,12 +1195,13 @@ def check_full_width(device, arch: str = "phi3-mini-3.8b",
         return rel_steps(a, b).max().item()
 
     # f32 weights: greedy on each side, the tokens must be equal
-    p32 = P.tree_map(lambda t: t.float(), params)
+    p32 = f32_tree(params, bf16_banks)
     t0 = time.perf_counter()
     (cpu_l, cpu_t), cpu_r = run(cfg, p32, prompt, max_len, steps)
     cpu_s = time.perf_counter() - t0
     (gpu_l, gpu_t), gpu_r = run(cfg, P.tree_map(lambda t: t.to(device), p32),
                                 prompt.to(device), max_len, steps)
+    del p32
     err32 = rel(gpu_l, cpu_l)
     top2 = cpu_l.topk(2, dim=-1).values
     margin = ((top2[:, 0] - top2[:, 1]) / cpu_l.abs().max(-1).values).min()
@@ -1046,7 +1244,8 @@ def check_full_width(device, arch: str = "phi3-mini-3.8b",
         fail(f"full width {arch} bf16: logits rel err {err16:.3e} > "
              f"{bf16_tol}")
     rec["phase_s"] = time.perf_counter() - t_phase
-    print(f"full width {arch}: {layers} layers, {rec['cfg']['params']:,} "
+    print(f"full width {arch}: {cfg.num_layers} layers, "
+          f"{rec['cfg']['params']:,} "
           f"parameters, {rec['phase_s']:.1f} s (CPU greedy f32 "
           f"{cpu_s:.1f} s, bf16 {cpu16_s:.1f} s)", flush=True)
     return rec
@@ -1100,15 +1299,16 @@ def check_attention_serving(args, report, launches) -> None:
           f"{r['phase_s']:.1f} s", flush=True)
 
 
-def run_moe_serving(kernels) -> tuple:
-    """Step 6d: deepseek-moe-16b served at full width and full depth
-    (``DEEPSEEK_SERVE_ARGS``), with the card's memory read right after
-    the weights' initialisation (``init_params`` wrapped for the run):
-    the peak while ``init_tree`` drew them and what they hold.
-    -> (report, launches of ``kernels``)."""
+def run_measured_serving(args, kernels) -> tuple:
+    """A serving run at full width and full depth (``launch.serve`` flags
+    ``args``: step 6d's deepseek-moe-16b, step 6e's llava), with the
+    card's memory read right after the weights' initialisation
+    (``init_params`` wrapped for the run): the peak while ``init_tree``
+    drew them and what they hold.  -> (report, launches of ``kernels``)."""
     import gc
 
     from repro_torch.models import registry as R
+    arch = args[args.index("--arch") + 1]
     gc.collect()
     torch.cuda.empty_cache()
     for k in kernels:
@@ -1116,9 +1316,9 @@ def run_moe_serving(kernels) -> tuple:
     real, mem = R.init_params, {}
     held = torch.cuda.memory_allocated()
 
-    def init_and_measure(*args, **kw):
+    def init_and_measure(*a, **kw):
         t0 = time.perf_counter()
-        params = real(*args, **kw)
+        params = real(*a, **kw)
         torch.cuda.synchronize()
         mem.update(init_s=time.perf_counter() - t0,
                    held_before_gb=held / 1e9,
@@ -1129,18 +1329,99 @@ def run_moe_serving(kernels) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     R.init_params = init_and_measure
     try:
-        report = run_serving(DEEPSEEK_SERVE_ARGS)
+        report = run_serving(args)
     finally:
         R.init_params = real
     report.update(mem)
     launches = {k.__name__: k.launches for k in kernels}
-    print(f"launches on the deepseek-moe-16b serving path: {launches}",
-          flush=True)
-    print(f"serving deepseek-moe-16b: init {mem['init_s']:.1f} s, peak "
+    print(f"launches on the {arch} serving path: {launches}", flush=True)
+    print(f"serving {arch}: init {mem['init_s']:.1f} s, peak "
           f"{mem['init_peak_gb']:.2f} GB at init ({mem['held_before_gb']:.2f}"
           f" GB held before), weights {mem['weights_gb']:.2f} GB", flush=True)
-    check_attention_serving(DEEPSEEK_SERVE_ARGS, report, launches)
+    check_attention_serving(args, report, launches)
     return report, launches
+
+
+def run_jamba_engine(kernels) -> tuple:
+    """Step 6f: the jamba cut (``JAMBA_CUT``) at full width on one
+    ``InferenceEngine`` (``make_warmed_engine``, max batch 4): weights of
+    seed 0 drawn on the card, ``JAMBA_ENGINE_REQUESTS`` prompts of
+    ``JAMBA_ENGINE_PROMPT`` tokens, ``JAMBA_ENGINE_NEW`` new tokens each.
+    Every request must complete; ``ssd_scan`` (the Mamba layer) and
+    ``flash_attention`` (the attention layer) launch once a prefill,
+    ``decode_attention`` once a decode step, the warm-up's included.
+    -> (record, launches of ``kernels``)."""
+    import gc
+    from dataclasses import replace
+
+    from repro_torch.configs.base import MAMBA, get_config
+    from repro_torch.models import registry as R
+    from repro_torch.serving.engine import make_warmed_engine
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = replace(get_config("jamba-1.5-large-398b"), **JAMBA_CUT)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = R.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    rec = {"init_s": time.perf_counter() - t0, "held_before_gb": held / 1e9,
+           "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "weights_gb": (torch.cuda.memory_allocated() - held) / 1e9,
+           "params": R.count_params(cfg), "requests": JAMBA_ENGINE_REQUESTS,
+           "prompt": JAMBA_ENGINE_PROMPT, "new_tokens": JAMBA_ENGINE_NEW,
+           "max_len": JAMBA_ENGINE_MAX_LEN}
+    for k in kernels:
+        k.launches = 0
+    eng = make_warmed_engine(cfg, params, max_batch=4,
+                             prompt_len=JAMBA_ENGINE_PROMPT,
+                             max_new_tokens=JAMBA_ENGINE_NEW)
+    rng = np.random.default_rng(0)
+    for i in range(JAMBA_ENGINE_REQUESTS):
+        eng.submit(rng.integers(0, cfg.vocab_size, JAMBA_ENGINE_PROMPT),
+                   JAMBA_ENGINE_NEW, i)
+    t0 = time.perf_counter()
+    done = eng.run_until_idle()
+    torch.cuda.synchronize()
+    rec["wall_s"] = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    rec.update(launches=launches, prefills=eng.prefill_count,
+               decode_steps=eng.decode_steps,
+               prefill_ms=eng.prefill_seconds / eng.prefill_count * 1e3,
+               decode_step_ms=eng.decode_seconds / eng.decode_steps * 1e3,
+               tokens_per_s=eng.tokens_done / rec["wall_s"])
+    print(f"jamba engine: {len(done)} of {JAMBA_ENGINE_REQUESTS} requests, "
+          f"{eng.prefill_count} prefills of {JAMBA_ENGINE_PROMPT} tokens "
+          f"{rec['prefill_ms']:.2f} ms, {eng.decode_steps} decode steps "
+          f"{rec['decode_step_ms']:.2f} ms (batch 4), "
+          f"{rec['tokens_per_s']:.1f} tokens/s; init {rec['init_s']:.1f} s, "
+          f"peak {rec['init_peak_gb']:.2f} GB at init "
+          f"({rec['held_before_gb']:.2f} GB held before), weights "
+          f"{rec['weights_gb']:.2f} GB; launches {launches}", flush=True)
+    if sorted(c.req_id for c in done) != list(range(JAMBA_ENGINE_REQUESTS)) \
+            or any(len(c.tokens) != JAMBA_ENGINE_NEW
+                   or not all(0 <= t < cfg.vocab_size for t in c.tokens)
+                   for c in done):
+        fail(f"jamba engine: {len(done)} of {JAMBA_ENGINE_REQUESTS} "
+             f"requests completed with {JAMBA_ENGINE_NEW} valid tokens")
+    mamba = sum(k == MAMBA for k in cfg.resolved_pattern) * cfg.n_groups
+    attn = cfg.num_layers - mamba
+    # the warm-up: one prefill and one decode step
+    want = {"ssd_scan": mamba * (eng.prefill_count + 1),
+            "flash_attention": attn * (eng.prefill_count + 1),
+            "decode_attention": attn * (eng.decode_steps + 1)}
+    if eng.prefill_count != JAMBA_ENGINE_REQUESTS or \
+            {k: launches[k] for k in want} != want:
+        fail(f"jamba engine: launches {launches}, expected {want} for "
+             f"{eng.prefill_count} prefills and {eng.decode_steps} decode "
+             f"steps")
+    del eng, params
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"jamba engine: {rec['phase_s']:.1f} s", flush=True)
+    return rec, launches
 
 
 def fleet_saturation(engines, vocab: int, clock=time.monotonic,
@@ -1931,9 +2212,8 @@ def main() -> int:
     record["full_width"] = check_full_width(device)
     record["full_width_mamba"] = check_full_width(
         device, "mamba2-1.3b", 384, MAMBA_F32_LOGIT_TOL, MAMBA_BF16_LOGIT_TOL)
-    for arch, layers, prompt_len, f32_tol, bf16_tol in FULL_WIDTH_CHECKS:
-        record[f"full_width_{arch}"] = check_full_width(
-            device, arch, prompt_len, f32_tol, bf16_tol, layers=layers)
+    for chk in FULL_WIDTH_CHECKS:
+        record[f"full_width_{chk['arch']}"] = check_full_width(device, **chk)
         torch.cuda.empty_cache()
 
     # ---- main path 2, serving phi3-mini-3.8b at full width -----------------
@@ -1991,11 +2271,25 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- main path 3c, serving deepseek-moe-16b at full width and depth ----
-    record["serving_deepseek"], ds_launches = run_moe_serving(all_kernels)
+    record["serving_deepseek"], ds_launches = run_measured_serving(
+        DEEPSEEK_SERVE_ARGS, all_kernels)
     for k in attention_kernels:
         launches[k.__name__] += ds_launches[k.__name__]
     record["serving_deepseek_launches"] = ds_launches
     torch.cuda.empty_cache()
+
+    # ---- main path 3d, serving llava-next-mistral-7b at full depth ---------
+    record["serving_llava"], llava_launches = run_measured_serving(
+        LLAVA_SERVE_ARGS, all_kernels)
+    for k in attention_kernels:
+        launches[k.__name__] += llava_launches[k.__name__]
+    record["serving_llava_launches"] = llava_launches
+    torch.cuda.empty_cache()
+
+    # ---- main path 3e, the jamba cut on one engine --------------------------
+    record["jamba_engine"], jamba_launches = run_jamba_engine(all_kernels)
+    for name in ("flash_attention", "decode_attention", "ssd_scan"):
+        launches[name] += jamba_launches[name]
 
     # ---- main path 4, control on real phi3 replicas at full width ----------
     record["engine_control"], ec_launches = run_engine_control(

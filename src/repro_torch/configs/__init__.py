@@ -1,2 +1,2 @@
-"""Architecture configs of the port (``repro.configs`` trimmed to the
-models the port runs)."""
+"""Architecture configs of the port (copies of ``repro.configs``, without
+the TPU dry-run's shape cells)."""

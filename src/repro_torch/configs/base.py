@@ -2,11 +2,13 @@
 
 Copy of ``repro.configs.base``: the layer kinds, ``MoEConfig``,
 ``MambaConfig`` and ``ArchConfig`` with ``smoke()``, and the registry.
-Only the architectures whose layers the port runs are registered
-(``phi3-mini-3.8b``, ``gemma3-12b``, ``stablelm-3b``, ``command-r-35b``,
-``mamba2-1.3b``, and the MoE models ``deepseek-moe-16b`` and
-``mixtral-8x22b``); any other name raises ``KeyError``.  The shape cells
-of the TPU dry-run are not part of this package.
+Every architecture of the JAX package is registered: the dense
+``phi3-mini-3.8b``, ``gemma3-12b``, ``stablelm-3b`` and ``command-r-35b``,
+the Mamba-2 ``mamba2-1.3b``, the MoE ``deepseek-moe-16b`` and
+``mixtral-8x22b``, the hybrid ``jamba-1.5-large-398b``, the
+encoder-decoder ``whisper-small`` and the patch-frontend
+``llava-next-mistral-7b``; any other name raises ``KeyError``.  The shape
+cells of the TPU dry-run are not part of this package.
 """
 from __future__ import annotations
 
@@ -157,22 +159,24 @@ def _populate() -> None:
     import repro_torch.configs.command_r_35b  # noqa: F401  (registers)
     import repro_torch.configs.deepseek_moe_16b  # noqa: F401
     import repro_torch.configs.gemma3_12b  # noqa: F401
+    import repro_torch.configs.jamba_1_5_large_398b  # noqa: F401
+    import repro_torch.configs.llava_next_mistral_7b  # noqa: F401
     import repro_torch.configs.mamba2_1_3b  # noqa: F401
     import repro_torch.configs.mixtral_8x22b  # noqa: F401
     import repro_torch.configs.phi3_mini_3_8b  # noqa: F401
     import repro_torch.configs.stablelm_3b  # noqa: F401
+    import repro_torch.configs.whisper_small  # noqa: F401
 
 
 def get_config(name: str) -> ArchConfig:
     """The config registered as ``name``; ``<name>-smoke`` is its
-    reduced CPU-test form.  Architectures the port does not run yet
-    raise ``KeyError``."""
+    reduced CPU-test form.  Any other name raises ``KeyError``."""
     _populate()
     if name.endswith("-smoke"):
         return get_config(name[: -len("-smoke")]).smoke()
     try:
         return _REGISTRY[name]
     except KeyError:
-        raise KeyError(f"arch {name!r} is not ported yet (ported: "
+        raise KeyError(f"unknown arch {name!r} (registered: "
                        f"{', '.join(sorted(_REGISTRY))})") from None
 

@@ -6,13 +6,20 @@
       --replicas 2 --qps 2 --duration 10 --prompt-len 1100 --max-new 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b \\
       --replicas 2 --qps 2 --duration 10 --prompt-len 128 --max-new 32
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch llava-next-mistral-7b --replicas 2 --qps 2 --duration 10 \\
+      --prompt-len 128 --max-new 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-mini-3.8b \\
       --smoke --device cpu --duration 3
 
-``--arch`` is any architecture the port registers: phi3-mini-3.8b,
-gemma3-12b, stablelm-3b, command-r-35b, mamba2-1.3b, and the MoE models
-deepseek-moe-16b (16.9 B parameters, 33.8 GB in bf16: one card holds it)
-and mixtral-8x22b (140.6 B: one card holds its ``--smoke`` form only).
+``--arch`` is any architecture the port registers that serves token
+prompts: phi3-mini-3.8b, gemma3-12b, stablelm-3b, command-r-35b,
+mamba2-1.3b, the MoE models deepseek-moe-16b (16.9 B parameters, 33.8 GB
+in bf16: one card holds it) and mixtral-8x22b (140.6 B: one card holds
+its ``--smoke`` form only), the hybrid jamba-1.5-large-398b (397.6 B:
+``--smoke`` only) and llava-next-mistral-7b (7.2 B; served without an
+image prefix, as the JAX package's engine serves it).  whisper-small, an
+encoder-decoder model, is refused: its prefill needs the encoder's input.
 
 Real wall-clock serving of a real model (random weights drawn from
 ``--seed``, shared by every replica) driven by open-loop clients — the

@@ -1,9 +1,13 @@
-"""Attention: GQA self attention for prefill and decode.
+"""Attention: GQA self attention for prefill and decode, and the cross
+attention of encoder-decoder models.
 
 Copy of ``repro.models.attention`` in PyTorch.  The attention itself
 goes through ``kernels.ops``: the CUDA kernels for tensors on the card,
 their plain versions (the JAX reference oracle's arithmetic) on the
-CPU.  Cross attention (encoder-decoder models) is not ported yet.
+CPU.  Cross attention reads the encoder's output: over the whole decoder
+sequence through ``flash_attention`` without a causal mask, and at
+decode through ``decode_attention`` over the cached encoder K/V; it has
+no RoPE and no qk-norm.
 
 The decode cache is updated in place: ``decode_self_attention`` writes
 the new token's K/V and position into the cache it is given (the JAX
@@ -25,8 +29,6 @@ from repro_torch.models.param import Spec
 # Param specs
 # ---------------------------------------------------------------------------
 def attention_specs(cfg: ArchConfig, cross: bool = False) -> dict:
-    if cross:
-        raise NotImplementedError("cross attention is not ported yet")
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     out = {
         "q": Spec((d, h, hd), ("embed", "heads", "head_dim")),
@@ -39,7 +41,7 @@ def attention_specs(cfg: ArchConfig, cross: bool = False) -> dict:
         out["kb"] = Spec((kv, hd), ("kv_heads", "head_dim"), torch.float32, "zeros")
         out["vb"] = Spec((kv, hd), ("kv_heads", "head_dim"), torch.float32, "zeros")
         out["ob"] = Spec((d,), ("embed",), torch.float32, "zeros")
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         out["q_norm"] = Spec((hd,), ("head_dim",), torch.float32, "ones")
         out["k_norm"] = Spec((hd,), ("head_dim",), torch.float32, "ones")
     return out
@@ -127,3 +129,47 @@ def decode_self_attention(cfg: ArchConfig, p: dict, x: torch.Tensor,
                              key_positions=cache["pos"], q_pos=positions,
                              window=window)
     return _out_proj(p, o), cache
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (decoder over the encoder's output)
+# ---------------------------------------------------------------------------
+def _query(p: dict, x: torch.Tensor) -> torch.Tensor:
+    q = _heads(x, p["q"])
+    if "qb" in p:
+        q = q + p["qb"].to(q.dtype)
+    return q
+
+
+def cross_kv(p: dict, enc_out: torch.Tensor):
+    """The cross-attention K/V of the encoder's output ``(B, T, D)``:
+    each ``(B, T, KV, hd)`` in the promoted dtype of ``enc_out`` and the
+    weights, with the biases ``kb``/``vb``; no RoPE."""
+    k, v = _heads(enc_out, p["k"]), _heads(enc_out, p["v"])
+    if "kb" in p:
+        k = k + p["kb"].to(k.dtype)
+        v = v + p["vb"].to(v.dtype)
+    return k, v
+
+
+def cross_attention_seq(cfg: ArchConfig, p: dict, x: torch.Tensor,
+                        k: torch.Tensor, v: torch.Tensor):
+    """The decoder sequence ``x (B, S, D)`` over the encoder's output,
+    without a mask; ``k, v`` are ``cross_kv(p, enc_out)`` (the JAX
+    package projects them here; the port's prefill keeps them for the
+    decode cache too).  The flash kernel takes one dtype: where q and K/V
+    differ, all three are cast to their promoted dtype."""
+    q = _query(p, x)
+    dt = torch.promote_types(q.dtype, k.dtype)
+    o = ops.flash_attention(q.to(dt), k.to(dt), v.to(dt), causal=False)
+    return _out_proj(p, o)
+
+
+def cross_attention_decode(cfg: ArchConfig, p: dict, x: torch.Tensor,
+                           ek: torch.Tensor, ev: torch.Tensor,
+                           enc_lengths: torch.Tensor):
+    """One decoder token ``x (B, D)`` over the cached encoder K/V ``ek,
+    ev (B, T, KV, hd)`` (bf16); key ``j`` of row ``b`` counts when ``j <
+    enc_lengths[b]`` (no key positions, no query position)."""
+    o = ops.decode_attention(_query(p, x), ek, ev, lengths=enc_lengths)
+    return _out_proj(p, o)

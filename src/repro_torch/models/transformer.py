@@ -1,36 +1,39 @@
-"""Decoder stack assembly: pattern groups of blocks, run group by group.
+"""Decoder and encoder stack assembly: pattern groups of blocks, run
+group by group.
 
-Copy of ``repro.models.transformer`` in PyTorch for the dense attention,
-MoE and Mamba-2 stacks.  A model is ``embed -> groups -> final_norm``,
-where one group is one repetition of ``cfg.resolved_pattern`` (gemma3:
-5 sliding-window + 1 global attention layer).  Parameters and caches
-are stacked along a leading group axis, as in the JAX package; where
-JAX scans over that axis (``lax.scan``), the port runs a Python loop
-over groups and hands each block views of its group's slices.  The
-``ATTN``, ``ATTN_SWA`` and ``MAMBA`` layer kinds are ported, each with
-a dense MLP (or none, ``d_ff = 0``) or, at ``cfg.moe_positions``, an
-MoE FFN (``models/moe.py``; ``moe_impl`` picks its dispatch or dense
-form), sequential or parallel (command-r: ``x + attn(h) + mlp(h)``); an
-``ATTN_SWA`` layer attends over the last ``cfg.sliding_window``
-positions and keeps a ring of that many cache slots.  Other layer kinds
-(cross attention, the encoder's) raise ``NotImplementedError``.
+Copy of ``repro.models.transformer`` in PyTorch.  A model is ``embed ->
+groups -> final_norm``, where one group is one repetition of a pattern
+(``cfg.resolved_pattern`` for the decoder, gemma3: 5 sliding-window + 1
+global attention layer; ``(ENC_ATTN,)`` for an encoder).  Parameters
+and caches are stacked along a leading group axis, as in the JAX
+package; where JAX scans over that axis (``lax.scan``), the port runs a
+Python loop over the stacked tree's groups and hands each block views of
+its group's slices.  Every layer kind is ported: ``ATTN``, ``ATTN_SWA``
+(attention over the last ``cfg.sliding_window`` positions, a ring of
+that many cache slots), ``ENC_ATTN`` (bidirectional attention; at decode
+it reads its cache as ``ATTN`` does, as in the JAX package) and
+``MAMBA``, each with a dense MLP (or none, ``d_ff = 0``) or, at
+``cfg.moe_positions``, an MoE FFN (``models/moe.py``; ``moe_impl`` picks
+its dispatch or dense form), sequential or parallel (command-r: ``x +
+attn(h) + mlp(h)``).  A decoder block of an encoder-decoder model
+(``cross=True``) adds cross attention over the encoder's output between
+its mixer and its FFN: ``x + xattn(xnorm(x))``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ATTN, ATTN_SWA, MAMBA, ArchConfig
+from repro_torch.configs.base import ATTN, ATTN_SWA, ENC_ATTN, MAMBA, ArchConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import apply_mlp, apply_norm, mlp_specs, norm_specs
-from repro_torch.models.param import stack_specs, tree_map
+from repro_torch.models.param import leaves, stack_specs, tree_map
 
 
 def _check_kind(cfg: ArchConfig, kind: str) -> None:
-    if kind not in (ATTN, ATTN_SWA, MAMBA):
-        raise NotImplementedError(f"layer kind {kind!r} ({cfg.name}) is not "
-                                  f"ported yet")
+    if kind not in (ATTN, ATTN_SWA, ENC_ATTN, MAMBA):
+        raise ValueError(f"unknown layer kind {kind!r} ({cfg.name})")
 
 
 def _window(cfg: ArchConfig, kind: str):
@@ -42,13 +45,17 @@ def _window(cfg: ArchConfig, kind: str):
 # ---------------------------------------------------------------------------
 # Specs
 # ---------------------------------------------------------------------------
-def block_specs(cfg: ArchConfig, pos: int, kind: str) -> dict:
+def block_specs(cfg: ArchConfig, pos: int, kind: str,
+                cross: bool = False) -> dict:
     _check_kind(cfg, kind)
     out = {"norm1": norm_specs(cfg)}
     if kind == MAMBA:
         out["mamba"] = mamba_mod.mamba_specs(cfg)
     else:
         out["attn"] = attn_mod.attention_specs(cfg)
+    if cross:
+        out["xnorm"] = norm_specs(cfg)
+        out["xattn"] = attn_mod.attention_specs(cfg, cross=True)
     is_moe = (cfg.moe is not None and cfg.moe_positions
               and pos in cfg.moe_positions)
     if cfg.d_ff > 0 or is_moe:
@@ -61,8 +68,9 @@ def block_specs(cfg: ArchConfig, pos: int, kind: str) -> dict:
     return out
 
 
-def stack_block_specs(cfg: ArchConfig, pattern, n_groups: int) -> dict:
-    per_pos = {f"pos{i}": block_specs(cfg, i, kind)
+def stack_block_specs(cfg: ArchConfig, pattern, n_groups: int,
+                      cross: bool = False) -> dict:
+    per_pos = {f"pos{i}": block_specs(cfg, i, kind, cross=cross)
                for i, kind in enumerate(pattern)}
     return stack_specs(per_pos, n_groups)
 
@@ -88,6 +96,12 @@ def group_slice(tree: dict, g: int) -> dict:
     return tree_map(lambda t: t[g], tree)
 
 
+def n_groups(tree: dict) -> int:
+    """The groups of a stacked tree: its leaves' leading axis (the
+    encoder's ``num_encoder_layers``, the decoder's ``cfg.n_groups``)."""
+    return next(leaves(tree))[1].shape[0]
+
+
 # ---------------------------------------------------------------------------
 # Block application
 # ---------------------------------------------------------------------------
@@ -99,39 +113,60 @@ def _ffn(cfg: ArchConfig, p: dict, x: torch.Tensor,
 
 
 def _residual(cfg: ArchConfig, p: dict, x: torch.Tensor, h: torch.Tensor,
-              mix: torch.Tensor, moe_impl: str) -> torch.Tensor:
+              mix: torch.Tensor, moe_impl: str, cross=None) -> torch.Tensor:
     """The block's output from its input ``x``, the ``norm1`` output ``h``
     and the mixer's output ``mix``: ``x + mix + ffn(h)`` for a parallel
-    block; otherwise ``x + mix``, then ``+ ffn(norm2(.))`` where the
-    block has an FFN (its MLP or its MoE)."""
-    if "mlp" not in p and "moe" not in p:
-        return x + mix
+    block (which, as in the JAX package, has no cross attention);
+    otherwise ``x + mix``, then ``+ cross(xnorm(.))`` where the block
+    has cross attention (``cross`` maps the normed stream to its
+    output), then ``+ ffn(norm2(.))`` where the block has an FFN (its MLP
+    or its MoE)."""
+    has_ffn = "mlp" in p or "moe" in p
     if cfg.parallel_block:
-        return x + mix + _ffn(cfg, p, h, moe_impl)
+        return x + mix + _ffn(cfg, p, h, moe_impl) if has_ffn else x + mix
     x = x + mix
+    if cross is not None:
+        x = x + cross(apply_norm(cfg, p["xnorm"], x))
+    if not has_ffn:
+        return x
     return x + _ffn(cfg, p, apply_norm(cfg, p["norm2"], x), moe_impl)
 
 
 def apply_block_seq(cfg: ArchConfig, p: dict, kind: str, x: torch.Tensor, *,
-                    positions: torch.Tensor, moe_impl: str = "dispatch"):
+                    positions: torch.Tensor, moe_impl: str = "dispatch",
+                    enc_out=None):
     """-> (x, payload): the block's output and what its decode cache is
     built from: the rotated ``(k, v)`` of an attention block; the cache
-    itself (final SSD state and conv tails) of a Mamba block."""
+    itself (final SSD state and conv tails) of a Mamba block.  A cross
+    block adds ``ek``/``ev``, the ``cross_kv`` of ``enc_out`` rounded to
+    bf16 for the cache (the attention here reads them unrounded): ``(k,
+    v, ek, ev)``, or the Mamba cache with those two entries."""
     h = apply_norm(cfg, p["norm1"], x)
     if kind == MAMBA:
         mix, payload = mamba_mod.apply_mamba(cfg, p["mamba"], h)
     else:
         mix, k, v = attn_mod.self_attention(cfg, p["attn"], h,
-                                            positions=positions, causal=True,
+                                            positions=positions,
+                                            causal=kind != ENC_ATTN,
                                             window=_window(cfg, kind))
         payload = (k, v)
-    return _residual(cfg, p, x, h, mix, moe_impl), payload
+    cross = None
+    if "xattn" in p:
+        xkv = attn_mod.cross_kv(p["xattn"], enc_out)
+
+        def cross(hx):
+            return attn_mod.cross_attention_seq(cfg, p["xattn"], hx, *xkv)
+        ek, ev = (t.to(torch.bfloat16) for t in xkv)
+        payload = (dict(payload, ek=ek, ev=ev) if kind == MAMBA
+                   else payload + (ek, ev))
+    return _residual(cfg, p, x, h, mix, moe_impl, cross), payload
 
 
 def apply_block_decode(cfg: ArchConfig, p: dict, kind: str, x: torch.Tensor,
                        cache: dict, *, positions: torch.Tensor,
-                       moe_impl: str = "dispatch"):
-    """x: (B, D) single token; ``cache`` updated in place."""
+                       moe_impl: str = "dispatch", enc_lengths=None):
+    """x: (B, D) single token; ``cache`` updated in place (a cross
+    block's ``ek``/``ev`` are read, never written)."""
     h = apply_norm(cfg, p["norm1"], x)
     if kind == MAMBA:
         mix = mamba_mod.decode_mamba(cfg, p["mamba"], h, cache)
@@ -140,41 +175,57 @@ def apply_block_decode(cfg: ArchConfig, p: dict, kind: str, x: torch.Tensor,
                                                 positions=positions,
                                                 lengths=positions + 1,
                                                 window=_window(cfg, kind))
-    return _residual(cfg, p, x, h, mix, moe_impl)
+    cross = None
+    if "xattn" in p:
+        def cross(hx):
+            return attn_mod.cross_attention_decode(
+                cfg, p["xattn"], hx, cache["ek"], cache["ev"], enc_lengths)
+    return _residual(cfg, p, x, h, mix, moe_impl, cross)
 
 
 # ---------------------------------------------------------------------------
 # Stack runners (a loop over groups)
 # ---------------------------------------------------------------------------
 def run_stack_seq(cfg: ArchConfig, groups: dict, x: torch.Tensor, *,
-                  positions: torch.Tensor,
-                  moe_impl: str = "dispatch") -> torch.Tensor:
-    pattern = cfg.resolved_pattern
-    for g in range(cfg.n_groups):
+                  positions: torch.Tensor, moe_impl: str = "dispatch",
+                  pattern=None, enc_out=None) -> torch.Tensor:
+    """Every group of the stacked tree ``groups`` over ``x``, each a
+    repetition of ``pattern`` (default ``cfg.resolved_pattern``); cross
+    blocks read ``enc_out``."""
+    pattern = pattern or cfg.resolved_pattern
+    for g in range(n_groups(groups)):
         gp = group_slice(groups, g)
         for i, kind in enumerate(pattern):
             x, _ = apply_block_seq(cfg, gp[f"pos{i}"], kind, x,
-                                   positions=positions, moe_impl=moe_impl)
+                                   positions=positions, moe_impl=moe_impl,
+                                   enc_out=enc_out)
     return x
 
 
 def run_stack_prefill(cfg: ArchConfig, groups: dict, x: torch.Tensor, *,
                       positions: torch.Tensor, max_len: int,
-                      moe_impl: str = "dispatch"):
+                      moe_impl: str = "dispatch", pattern=None,
+                      enc_out=None):
     """Like ``run_stack_seq``, and also the decode cache of every block,
-    stacked by group as ``stack_cache_specs`` lays it out."""
-    pattern = cfg.resolved_pattern
+    stacked by group as ``stack_cache_specs`` lays it out (a cross
+    block's entry with its ``ek``/``ev``)."""
+    pattern = pattern or cfg.resolved_pattern
     per_group = []
-    for g in range(cfg.n_groups):
+    for g in range(n_groups(groups)):
         gp = group_slice(groups, g)
         caches = {}
         for i, kind in enumerate(pattern):
             x, payload = apply_block_seq(cfg, gp[f"pos{i}"], kind, x,
                                          positions=positions,
-                                         moe_impl=moe_impl)
-            caches[f"pos{i}"] = (payload if kind == MAMBA else
-                                 _prefill_cache(*payload, positions,
-                                                max_len, _window(cfg, kind)))
+                                         moe_impl=moe_impl, enc_out=enc_out)
+            if kind == MAMBA:
+                entry = payload
+            else:
+                entry = _prefill_cache(*payload[:2], positions, max_len,
+                                       _window(cfg, kind))
+                if len(payload) == 4:
+                    entry["ek"], entry["ev"] = payload[2:]
+            caches[f"pos{i}"] = entry
         per_group.append(caches)
     stacked = {name: {leaf: torch.stack([c[name][leaf] for c in per_group])
                       for leaf in per_group[0][name]}
@@ -212,14 +263,16 @@ def _prefill_cache(k: torch.Tensor, v: torch.Tensor,
 
 def run_stack_decode(cfg: ArchConfig, groups: dict, x: torch.Tensor,
                      cache: dict, *, positions: torch.Tensor,
-                     moe_impl: str = "dispatch"):
+                     moe_impl: str = "dispatch", pattern=None,
+                     enc_lengths=None):
     """One decode step through every group; ``cache`` is updated in
     place and returned."""
-    pattern = cfg.resolved_pattern
-    for g in range(cfg.n_groups):
+    pattern = pattern or cfg.resolved_pattern
+    for g in range(n_groups(groups)):
         gp, gc = group_slice(groups, g), group_slice(cache, g)
         for i, kind in enumerate(pattern):
             x = apply_block_decode(cfg, gp[f"pos{i}"], kind, x,
                                    gc[f"pos{i}"], positions=positions,
-                                   moe_impl=moe_impl)
+                                   moe_impl=moe_impl,
+                                   enc_lengths=enc_lengths)
     return x, cache

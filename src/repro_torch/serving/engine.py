@@ -12,6 +12,12 @@ harness can drive it in real time: each ``step()`` performs one prefill
 (if a request is waiting and a slot is free) or one batched decode
 step, and returns completion events.
 
+It serves token prompts: a model with a patch frontend (llava) is
+served without an image prefix, as the reference's engine serves it, and
+an encoder-decoder model (whisper), whose prefill needs its encoder's
+input, is refused (the reference's engine fails at its first admission;
+such a model runs through ``registry.prefill`` and ``decode_step``).
+
 The engine runs where its parameters lie: on the card, prefill and
 decode go through the CUDA attention kernels.  Its decode cache is
 updated in place: a decode step writes every slot's new K/V into it,
@@ -249,6 +255,12 @@ class InferenceEngine:
     def __init__(self, cfg: ArchConfig, params, *, max_batch: int = 8,
                  max_len: int = 512,
                  clock: Callable[[], float] = time.monotonic):
+        if cfg.enc_dec:
+            raise ValueError(
+                f"{cfg.name} is an encoder-decoder model: its prefill needs "
+                f"the encoder's input (batch['frames']), and the engine "
+                f"serves token prompts only; run it through "
+                f"registry.prefill and registry.decode_step")
         self.cfg = cfg
         self.params = params
         self.max_batch = max_batch

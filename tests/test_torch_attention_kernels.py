@@ -72,6 +72,11 @@ def _close(port: torch.Tensor, jax_out, dtype: str, v: np.ndarray):
     (24, 24, 4, 2, 96, True, None),        # phi3's head_dim, GQA
     (20, 36, 4, 1, 16, True, 8),           # window + causal, MQA, S < T
     (40, 16, 2, 2, 16, False, 6),          # rows past T + window: no key
+    # whisper's encoder (S = T, bidirectional) and cross attention (a
+    # decoder sequence over the encoder's T), H = KV at hd 64, T reduced
+    # from 1500
+    (150, 150, 12, 12, 64, False, None),
+    (16, 150, 12, 12, 64, False, None),
 ])
 def test_flash_plain_matches_naive_oracle(dtype, S, T, H, KV, hd, causal,
                                           window):
@@ -148,6 +153,25 @@ def test_decode_plain_defaults_match_oracle():
                                torch.from_numpy(v),
                                lengths=torch.from_numpy(lengths), window=3)
     _close(got, want, "f32", v)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("B,T,H,KV,hd", [
+    (3, 150, 12, 12, 64),                  # whisper's cross decode, T reduced
+    (2, 48, 8, 1, 16),                     # one KV head for 8 query heads
+])
+def test_cross_decode_plain_matches_oracle(dtype, B, T, H, KV, hd):
+    """The cross attention's decode: ``lengths`` only (no key positions,
+    no query position), rows reading all of the encoder's T, part of it
+    and one position."""
+    g = np.random.default_rng((B, T, H))
+    q, k, v = _np(g, B, H, hd), _np(g, B, T, KV, hd), _np(g, B, T, KV, hd)
+    lengths = np.array([T, T // 3, 1][:B], np.int32)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in (q, k, v))
+    want = jref.decode_attention(jq, jk, jv, lengths=jnp.asarray(lengths))
+    got = ops.decode_attention(tq, tk, tv, lengths=torch.from_numpy(lengths))
+    assert got.dtype == tv.dtype and got.shape == tq.shape
+    _close(got, want, dtype, v)
 
 
 def test_plain_versions_match_interpret_pallas_kernels():

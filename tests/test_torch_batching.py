@@ -254,6 +254,10 @@ def test_batched_serving_arch_builds_from_hopper_roofline():
     rt = _port(tsc.get("batched-serving", arch="phi3-mini-3.8b",
                        duration=3.0, qps=40.0))
     assert rt.telemetry.overall().n > 0
-    # an architecture the port does not register still raises
-    with pytest.raises(KeyError, match="not ported yet"):
-        tsc.get("batched-serving", arch="jamba-1.5-large-398b")
+    # jamba, which the port registers now, builds on its active count;
+    # a name neither package registers still raises
+    arch = "jamba-1.5-large-398b"
+    assert tsc.get("batched-serving", arch=arch).service_model == \
+        BatchedService.from_arch(arch)
+    with pytest.raises(KeyError, match="unknown arch"):
+        tsc.get("batched-serving", arch="no-such-arch")

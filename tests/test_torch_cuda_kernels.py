@@ -299,6 +299,10 @@ def _within(kern, plain, v, tol=ATTN_TOL):
     (1, 1100, 1100, 16, 8, 256, True, None),
     (1, 128, 128, 32, 32, 80, True, None),
     (1, 128, 128, 64, 8, 128, True, None),
+    # whisper-small's encoder (bidirectional over its 1500 frames) and
+    # cross attention (a 64-token decoder sequence over them), hd 64
+    (1, 1500, 1500, 12, 12, 64, False, None),
+    (1, 64, 1500, 12, 12, 64, False, None),
 ])
 @pytest.mark.parametrize("dtype", ["bf16", "f32"])
 def test_flash_attention_kernel_close_to_plain(cuda, B, S, T, H, KV, hd,
@@ -374,6 +378,33 @@ def test_decode_attention_kernel_close_to_plain(cuda, B, T, H, KV, hd,
         mean = v[0].float().mean(0).repeat_interleave(H // KV, dim=0)
         torch.testing.assert_close(out[0].float(), mean, rtol=0,
                                    atol=ATTN_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,H,KV,hd", [
+    (1, 1500, 12, 12, 64),                 # whisper-small's cross decode
+    (3, 1500, 12, 12, 64),                 # rows reading part of it
+])
+@pytest.mark.parametrize("q_dtype", ["bf16", "f32"])
+def test_decode_attention_kernel_without_key_positions(cuda, B, T, H, KV,
+                                                       hd, q_dtype):
+    """The cross attention's decode: ``lengths`` only; the kernel's
+    defaults (key ``j`` at position ``j``, ``q_pos = lengths - 1``) give
+    the oracle's mask, ``j < lengths``."""
+    g = np.random.default_rng((B, T, H))
+    q = _bf16(g, B, H, hd, device=cuda, dtype=torch.float32
+              if q_dtype == "f32" else torch.bfloat16)
+    k = _bf16(g, B, T, KV, hd, device=cuda)
+    v = _bf16(g, B, T, KV, hd, device=cuda)
+    lengths = torch.tensor([T, T // 3, 1][:B], dtype=torch.int32,
+                           device=cuda)
+    before = decode_attention.decode_attention.launches
+    out = decode_attention.decode_attention(q, k, v, lengths=lengths)
+    plain = ref.decode_attention(q, k, v, lengths=lengths)
+    torch.cuda.synchronize()
+    assert decode_attention.decode_attention.launches == before + 1
+    assert torch.isfinite(out.float()).all()
+    _within(out, plain, v)
 
 
 @pytest.mark.gpu

@@ -337,14 +337,26 @@ def test_engine_prefills_mamba_at_exact_length(monkeypatch):
 
 
 def test_not_ported_layer_kinds_still_raise():
-    cfg = get_config(ARCH)
+    """An encoder layer beside Mamba in a pattern, with an MoE FFN or
+    without, raised before the port had encoder layers: both now build
+    JAX's parameter tree, keys and shapes."""
+    from repro.configs.base import MoEConfig as JMoE
+
     from repro_torch.configs.base import MoEConfig
-    for bad in (replace(cfg, pattern=("enc_attn", "mamba"),
-                        moe=MoEConfig(num_experts=4, top_k=2),
-                        moe_positions=(0,)),
-                replace(cfg, pattern=("mamba", "enc_attn"))):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            R.model_specs(bad)
+    cfg, jcfg = get_config(ARCH), jax_config(ARCH)
+    for over, jover in (
+            (dict(pattern=("enc_attn", "mamba"),
+                  moe=MoEConfig(num_experts=4, top_k=2), moe_positions=(0,)),
+             dict(moe=JMoE(num_experts=4, top_k=2))),
+            (dict(pattern=("mamba", "enc_attn")), {})):
+        port = dict(P.leaves(R.model_specs(replace(cfg, **over))))
+        flat = jax.tree_util.tree_flatten_with_path(
+            JR.model_specs(replace(jcfg, **dict(over, **jover))),
+            is_leaf=lambda s: hasattr(s, "axes"))[0]
+        ref = {tuple(k.key for k in path): s for path, s in flat}
+        assert set(port) == set(ref), over
+        for path, s in port.items():
+            assert s.shape == tuple(ref[path].shape), path
 
 
 def _run(*args, timeout=240):

@@ -23,6 +23,8 @@ Tolerances:
 """
 from __future__ import annotations
 
+from dataclasses import asdict
+
 import numpy as np
 import pytest
 import torch
@@ -73,7 +75,6 @@ def _rel(got: torch.Tensor, want) -> float:
 
 
 def test_config_is_the_reference_config():
-    from dataclasses import asdict
     for name in ("phi3-mini-3.8b", ARCH, "deepseek-moe-16b",
                  "mixtral-8x22b", "deepseek-moe-16b-smoke",
                  "mixtral-8x22b-smoke"):
@@ -88,8 +89,10 @@ def test_config_is_the_reference_config():
         if port.moe is not None:
             assert asdict(port.moe) == asdict(ref.moe), name
     for name in ("jamba-1.5-large-398b", "whisper-small"):
-        with pytest.raises(KeyError, match="not ported"):
-            get_config(name)
+        port, ref = get_config(name), jax_config(name)
+        assert asdict(port) == asdict(ref), name
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("no-such-arch")
 
 
 def test_count_params_full_width():
@@ -215,16 +218,42 @@ def test_mlp_activation_rounds_as_jax(act):
                                rtol=2.0 ** -21, atol=1e-6)
 
 
+def _spec_tree(specs) -> dict:
+    """(key path) -> (shape, dtype name) of every leaf of a spec tree of
+    either package."""
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (k,))
+        else:
+            dt = node.dtype
+            out[path] = (tuple(node.shape),
+                         str(dt).replace("torch.", "")
+                         if isinstance(dt, torch.dtype) else np.dtype(dt).name)
+    walk(specs, ())
+    return out
+
+
 def test_not_ported_model_parts_raise():
+    """The model parts that raised before the port had them (an encoder
+    layer in a decoder pattern, with MoE or alone, an encoder-decoder
+    model, a patch frontend) now build JAX's tree of ``model_specs``."""
     from dataclasses import replace
 
+    from repro.configs.base import MoEConfig as JMoE
+
     from repro_torch.configs.base import MoEConfig
-    cfg = get_config(ARCH)
-    for bad in (replace(cfg, pattern=("attn", "enc_attn"), num_layers=4,
-                        moe=MoEConfig(num_experts=4, top_k=2),
-                        moe_positions=(1,)),
-                replace(cfg, pattern=("enc_attn",)),
-                replace(cfg, enc_dec=True, num_encoder_layers=2),
-                replace(cfg, embed_frontend="patch")):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            R.model_specs(bad)
+    cfg, jcfg = get_config(ARCH), jax_config(ARCH)
+    for over, jover in (
+            (dict(pattern=("attn", "enc_attn"), num_layers=4,
+                  moe=MoEConfig(num_experts=4, top_k=2), moe_positions=(1,)),
+             dict(moe=JMoE(num_experts=4, top_k=2))),
+            (dict(pattern=("enc_attn",)), {}),
+            (dict(enc_dec=True, num_encoder_layers=2), {}),
+            (dict(embed_frontend="patch"), {})):
+        port = replace(cfg, **over)
+        ref = replace(jcfg, **dict(over, **jover))
+        assert _spec_tree(R.model_specs(port)) == \
+            _spec_tree(JR.model_specs(ref)), over
