@@ -6,8 +6,9 @@ tables land in ``artifacts/bench_torch/*.csv``.
 
     PYTHONPATH=src:. python benchmarks/torch_port/run.py
 
-Left out until the port carries what they need: ``roofline_table`` and
-``engine_serving``.
+``engine_serving`` serves a smoke model on the card (its own
+``--device cpu`` is not reachable from here).  Left out until the port
+carries what it needs: ``roofline_table`` (ROADMAP Queue A item 8).
 """
 from __future__ import annotations
 
@@ -17,13 +18,14 @@ import traceback
 
 def main() -> None:
     from benchmarks.torch_port import (bench_cache, bench_plan,
-                                       fig1_qps_latency,
+                                       engine_serving, fig1_qps_latency,
                                        fig4_equivalence, fig5_multiserver,
                                        fig6_interleaved, fig7_dynamic_qps,
                                        fig8_balancing, fig_batching, hedging)
     benches = [fig1_qps_latency, fig4_equivalence, fig5_multiserver,
                fig6_interleaved, fig7_dynamic_qps, fig8_balancing,
-               fig_batching, hedging, bench_plan, bench_cache]
+               fig_batching, hedging, bench_plan, bench_cache,
+               engine_serving]
     print("name,us_per_call,derived")
     failures = 0
     for b in benches:

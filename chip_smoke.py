@@ -8,7 +8,8 @@ pre-pass shapes) and real-model serving of dense attention models
 (phi3-mini-3.8b, gemma3-12b with its sliding-window layers, and
 llava-next-mistral-7b), of an MoE model (deepseek-moe-16b), of a
 Mamba-2 model (mamba2-1.3b) and of the hybrid jamba-1.5-large's
-Mamba/attention/MoE layers, and runs the encoder-decoder whisper-small:
+Mamba/attention/MoE layers, runs the encoder-decoder whisper-small, and
+trains phi3-mini-3.8b and mamba2-1.3b at full width and depth:
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
@@ -136,6 +137,28 @@ Mamba/attention/MoE layers, and runs the encoder-decoder whisper-small:
    every attempt must be served, retried, timed out or lost, with finite
    latencies and nothing left in flight, and both attention kernels must
    be launched;
+6g. trains: phi3-mini-3.8b (batch 8 x 128 tokens) and mamba2-1.3b (8 x
+   512, two scan chunks) at full width and 2 layers in f32, one loss and
+   gradient (``launch.train``'s loss: remat on, chunked cross-entropy)
+   on the CPU (plain versions) and on the card (the kernels' forward,
+   the plain versions' backward), from step 5's seed at
+   ``layer_std_specs``' scales (``TRAIN_AGREEMENT`` says why): the
+   loss within ``TRAIN_LOSS_RTOL``, the gradients' global norm within
+   ``TRAIN_GNORM_RTOL`` and every gradient leaf within
+   ``TRAIN_GRAD_TOL`` of its max|g|, the path's kernel launched twice a
+   layer (the forward and the remat recompute); then both at full depth
+   in bf16 through ``repro_torch.launch.train.main`` (its defaults:
+   batch 8, seq 128, mamba2 at 512; ``TRAIN_STEPS`` steps): a finite
+   loss every step, the last below the first, the kernel twice a layer
+   and step, with the step time, tokens/s and the card's peak memory
+   printed; then, in a subprocess with deterministic algorithms
+   (``CUBLAS_WORKSPACE_CONFIG=:4096:8``), ``examples/torch_port/
+   train_lm.py`` to its assert and ``launch.train`` straight against
+   checkpointed at step 3 and resumed (``RESUME_ARGS``), whose step-6
+   checkpoints must hold equal bits (checkpoints under ``build/``,
+   removed at the end); then ``benchmarks/torch_port/engine_serving.py``
+   and ``examples/torch_port/serve_e2e.py`` on the card, every request
+   served and both attention kernels launched;
 7. times each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, with CUDA events (median of
    repeated runs), and fails where a kernel's time reads under its
@@ -150,7 +173,9 @@ result.  The full record is also written to
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import re
@@ -714,7 +739,8 @@ def library_time(fn):
 #: command-r-35b and deepseek-moe-16b; whisper-small's encoder (over its
 #: 1500 frames) and cross attention (step 5's 64-token decoder prompt over
 #: them), both without a mask; llava's step-5 prefill behind its image
-#: prefix and the jamba cut's attention layer at step 6f's prompt
+#: prefix, the jamba cut's attention layer at step 6f's prompt and phi3's
+#: training batch (step 6g)
 FLASH_CASES = [
     ("phi3 S=32", 1, 32, 32, 32, 32, 96, True, None),
     ("phi3 S=128 (served bucket)", 1, SERVE_BUCKET, SERVE_BUCKET, 32, 32, 96,
@@ -738,6 +764,7 @@ FLASH_CASES = [
      128, True, None),
     ("jamba S=512", 1, JAMBA_ENGINE_PROMPT, JAMBA_ENGINE_PROMPT, 64, 8, 128,
      True, None),
+    ("phi3 training B=8 S=128", 8, 128, 128, 32, 32, 96, True, None),
 ]
 
 
@@ -894,14 +921,15 @@ def check_decode(device, label, B, T, H, KV, hd, window, ring,
 #: (label, b, s, h, p, n, chunk, dtype): mamba2-1.3b's prefill at the
 #: serving run's 512-token prompt (two chunks), a 384-token prompt that
 #: ops.ssd_scan pads into a second chunk, batch 4 at 2048 tokens, the
-#: served shape in f32, and jamba-1.5-large's Mamba layer (128 heads of
-#: 128, d_state 128) at the same prompt
+#: served shape in f32, jamba-1.5-large's Mamba layer (128 heads of 128,
+#: d_state 128) at the same prompt, and mamba2's training batch (step 6g)
 SSD_CASES = [
     ("mamba2 s=512 (served)", 1, 512, 64, 64, 128, 256, "bf16"),
     ("mamba2 s=384 (padded)", 1, 384, 64, 64, 128, 256, "bf16"),
     ("mamba2 b=4 s=2048", 4, 2048, 64, 64, 128, 256, "bf16"),
     ("mamba2 s=512 f32", 1, 512, 64, 64, 128, 256, "f32"),
     ("jamba-1.5-large s=512 p=128", 1, 512, 128, 128, 128, 256, "bf16"),
+    ("mamba2 training b=8 s=512", 8, 512, 64, 64, 128, 256, "bf16"),
 ]
 
 
@@ -2056,7 +2084,313 @@ def run_soft_phase(vector_kernels) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Step 6g: training
+# ---------------------------------------------------------------------------
+#: the train-step agreement: each arch at full width and 2 layers, f32,
+#: a batch of TRAIN_BATCH rows of ``seq`` tokens (mamba2: two scan
+#: chunks), one loss and gradient on the card (kernels) and on the CPU
+#: (plain versions) from the same weights, drawn at ``layer_std_specs``'
+#: scales, and batch.  At the reference's draw (each stacked matrix at
+#: std 1/sqrt(2)) the backward is ill-conditioned: phi3's worst leaf
+#: (norm1's scale) reads 6.389e-2 of its max|g| with the kernels,
+#: 6.318e-2 with the plain versions on the card and 8.339e-2 for the CPU
+#: against itself with every f32 weight one ulp off, the gradient norm
+#: 1.730e-3, 1.633e-3 and 9.342e-3; mamba2's worst leaf 4.487e-3,
+#: 6.475e-3 and 4.038e-3 (scripts/full_width_sensitivity.py --train ARCH
+#: --reference-draw; H100 80GB HBM3, 700.00 W): the model's, not a
+#: kernel's, and no bound near TRAIN_GRAD_TOL could be held
+TRAIN_AGREEMENT = [("phi3-mini-3.8b", 128), ("mamba2-1.3b", 512)]
+TRAIN_BATCH = 8
+#: card vs CPU: the loss (relative), the gradients' global norm
+#: (relative), every gradient leaf (relative to the leaf's max|g|)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GNORM_RTOL = 1e-4
+TRAIN_GRAD_TOL = 1e-3
+#: full-depth bf16 training through ``launch.train.main`` at its
+#: defaults (batch 8, seq 128; mamba2 at 512 tokens), TRAIN_STEPS steps
+TRAIN_RUNS = [("phi3-mini-3.8b", 128), ("mamba2-1.3b", 512)]
+TRAIN_STEPS = 10
+#: the resume check's run of ``launch.train`` (the model train_lm
+#: trains), straight against checkpointed-and-resumed
+RESUME_ARGS = ["--arch", "stablelm-3b", "--smoke", "--steps", "6",
+               "--batch", "8", "--seq", "128", "--lr", "1e-3",
+               "--ckpt-every", "3", "--log-every", "3"]
+
+
+#: ``launch.train``'s log line of a step
+STEP_LINE = re.compile(r"step +(\d+) loss=(\S+) acc=\S+ gnorm=(\S+) ")
+
+
+class StampedLines(io.TextIOBase):
+    """A text sink keeping each line written with the host clock's time
+    when it arrived."""
+
+    def __init__(self):
+        self.lines = []
+
+    def write(self, text: str) -> int:
+        now = time.perf_counter()
+        self.lines += [(now, ln) for ln in text.splitlines() if ln]
+        return len(text)
+
+
+def train_kernel(cfg) -> str:
+    """The kernel on a model's training path (its layers are all of one
+    kind here)."""
+    return "ssd_scan" if cfg.mamba is not None else "flash_attention"
+
+
+def train_loss_and_grads(cfg, params, batch) -> tuple:
+    """The training loss of ``launch.train`` (``make_loss_fn``: remat on,
+    chunked cross-entropy), its gradient at every leaf and their global
+    norm -> (loss, norm, {path: grad})."""
+    from repro_torch.models import param as P
+    from repro_torch.training.optimizer import global_norm
+    from repro_torch.training.train_step import make_loss_fn
+    paths, flat = zip(*((p, t.requires_grad_(True))
+                        for p, t in P.leaves(params)))
+    loss, _ = make_loss_fn(cfg)(params, batch)
+    grads = dict(zip(paths, torch.autograd.grad(loss, flat)))
+    for t in flat:
+        t.requires_grad_(False)
+    return (float(loss.detach()), float(global_norm(P.unflatten(
+        grads.items()))), grads)
+
+
+def check_train_agreement(device, arch: str, seq: int, kernels) -> tuple:
+    """One training loss and gradient of ``arch`` at full width, 2
+    layers, f32 (step 5's seed, at ``layer_std_specs``' scales), on the
+    CPU and on the card; -> (record, launches of ``kernels`` on the
+    card)."""
+    from repro_torch.models import param as P
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    t_phase = time.perf_counter()
+    cfg, params, *_ = full_width_model(arch, 2, layer_std=True)
+    p32 = f32_tree(params)
+    del params
+    data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_BATCH, seq))
+    batch = {k: torch.from_numpy(v) for k, v in data.next_batch().items()}
+    t0 = time.perf_counter()
+    cpu_loss, cpu_norm, cpu_g = train_loss_and_grads(cfg, p32, batch)
+    cpu_s = time.perf_counter() - t0
+    on_card = P.tree_map(lambda t: t.to(device), p32)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, norm, grads = train_loss_and_grads(
+        cfg, on_card, {k: v.to(device) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    kernel = train_kernel(cfg)
+    want = {k: 0 for k in launches}
+    want[kernel] = 2 * cfg.num_layers            # forward + remat recompute
+    if launches != want:
+        fail(f"train agreement {arch}: launches {launches}, expected "
+             f"{want} (the forward and the remat recompute of each layer)")
+    leaf = {}
+    for path, g in cpu_g.items():
+        scale = g.abs().max().item()
+        leaf["/".join(path)] = ((grads[path].cpu() - g).abs().max().item()
+                                / (scale if scale else 1.0))
+    worst = max(leaf, key=leaf.get)
+    rec = {"arch": arch, "layers": cfg.num_layers, "batch": TRAIN_BATCH,
+           "seq": seq, "params": sum(t.numel() for _, t in P.leaves(p32)),
+           "loss_cpu": cpu_loss, "loss_card": loss,
+           "loss_rel": abs(loss - cpu_loss) / abs(cpu_loss),
+           "grad_norm_cpu": cpu_norm, "grad_norm_card": norm,
+           "grad_norm_rel": abs(norm - cpu_norm) / cpu_norm,
+           "grad_rel_max": leaf[worst], "grad_rel_worst_leaf": worst,
+           "grad_rel": leaf, "cpu_s": cpu_s, "card_s": card_s,
+           "launches": launches,
+           "tol": {"loss": TRAIN_LOSS_RTOL, "grad_norm": TRAIN_GNORM_RTOL,
+                   "grad": TRAIN_GRAD_TOL}}
+    print(f"train agreement {arch} ({cfg.num_layers} layers, f32, batch "
+          f"{TRAIN_BATCH}x{seq}): loss card {loss:.7f} CPU {cpu_loss:.7f} "
+          f"(rel {rec['loss_rel']:.3e}), grad norm rel "
+          f"{rec['grad_norm_rel']:.3e}, worst leaf {worst} "
+          f"{leaf[worst]:.3e}; card {card_s:.2f} s, CPU {cpu_s:.2f} s, "
+          f"launches {launches}, {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    for key, got, tol in (("loss", rec["loss_rel"], TRAIN_LOSS_RTOL),
+                          ("grad norm", rec["grad_norm_rel"],
+                           TRAIN_GNORM_RTOL),
+                          (f"gradient {worst}", leaf[worst], TRAIN_GRAD_TOL)):
+        if not got <= tol:
+            fail(f"train agreement {arch}: {key} card vs CPU {got:.3e} "
+                 f"exceeds {tol}")
+    del on_card, grads
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def run_training(arch: str, seq: int, kernels) -> tuple:
+    """``launch.train.main`` on ``arch`` at full width and full depth in
+    bf16, TRAIN_STEPS steps at its default batch: a finite loss every
+    step and the last below the first, the path's kernel launched twice
+    a layer and step; -> (record, launches of ``kernels``)."""
+    import gc
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import train
+    cfg = get_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    log = StampedLines()
+    argv = ["--arch", arch, "--steps", str(TRAIN_STEPS), "--seq", str(seq),
+            "--log-every", "1"]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        train.main(argv)
+    wall = time.perf_counter() - t0
+    # each step's line is printed after its loss is read back (a sync)
+    steps, last = [], t0
+    for at, line in log.lines:
+        m = STEP_LINE.match(line)
+        if m:
+            steps.append({"step": int(m[1]), "loss": float(m[2]),
+                          "grad_norm": float(m[3]), "s": at - last})
+            last = at
+    launches = {k.__name__: k.launches for k in kernels}
+    step_s = statistics.median(s["s"] for s in steps[1:])
+    batch = 8                                    # launch.train's default
+    rec = {"arch": arch, "layers": cfg.num_layers, "batch": batch,
+           "seq": seq, "steps": steps, "step_ms": step_s * 1e3,
+           "first_step_ms": steps[0]["s"] * 1e3,
+           "tokens_per_s": batch * seq / step_s,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "wall_s": wall, "launches": launches}
+    losses = [s["loss"] for s in steps]
+    print(f"training {arch}: {cfg.num_layers} layers bf16, batch "
+          f"{batch}x{seq}, losses {[round(x, 4) for x in losses]}, step "
+          f"{rec['step_ms']:.1f} ms (median of steps 2-{TRAIN_STEPS}; the "
+          f"first {rec['first_step_ms']:.1f} ms with init), "
+          f"{rec['tokens_per_s']:.0f} tokens/s, peak {rec['peak_gb']:.2f} "
+          f"GB, launches {launches}, {wall:.1f} s", flush=True)
+    if len(steps) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"training {arch}: losses {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"training {arch}: the loss did not fall ({losses})")
+    want = {k: 0 for k in launches}
+    want[train_kernel(cfg)] = 2 * cfg.num_layers * TRAIN_STEPS
+    if launches != want:
+        fail(f"training {arch}: launches {launches}, expected {want} (the "
+             f"forward and the remat recompute of each layer and step)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def train_resume_check(root: str) -> None:
+    """Run in a subprocess with deterministic algorithms (the caller sets
+    them): ``examples/torch_port/train_lm.py`` to its assert, then
+    ``launch.train`` straight against checkpointed at step 3 and
+    resumed, whose step-6 checkpoints must hold equal bits; prints one
+    JSON line."""
+    import importlib.util
+
+    from repro_torch.launch import train
+    spec = importlib.util.spec_from_file_location(
+        "train_lm", ROOT / "examples" / "torch_port" / "train_lm.py")
+    train_lm = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(train_lm)
+    t0 = time.perf_counter()
+    loss = train_lm.main(["--ckpt-dir", str(Path(root) / "train_lm")])
+    train_lm_s = time.perf_counter() - t0
+    straight, resumed = Path(root) / "straight", Path(root) / "resumed"
+    t0 = time.perf_counter()
+    train.main(RESUME_ARGS + ["--ckpt-dir", str(straight)])
+    resumed.mkdir()
+    shutil.copytree(straight / "step_00000003", resumed / "step_00000003")
+    train.main(RESUME_ARGS + ["--ckpt-dir", str(resumed), "--resume"])
+    resume_s = time.perf_counter() - t0
+    with np.load(straight / "step_00000006" / "arrays.npz") as a, \
+            np.load(resumed / "step_00000006" / "arrays.npz") as b:
+        differ = sorted(k for k in a.files
+                        if not np.array_equal(a[k], b[k]))
+        n = len(a.files)
+    print(json.dumps({"train_lm_loss": loss, "train_lm_s": train_lm_s,
+                      "resume_arrays": n, "resume_differ": differ,
+                      "resume_s": resume_s}))
+
+
+def run_train_resume(root: Path) -> dict:
+    """``train_resume_check`` in a subprocess with
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` and
+    ``torch.use_deterministic_algorithms(True)``: without them the
+    embedding's index backward accumulates with atomics, in another
+    order each run."""
+    import os
+    code = ("import sys, torch\n"
+            "torch.use_deterministic_algorithms(True)\n"
+            "import chip_smoke\n"
+            "chip_smoke.train_resume_check(sys.argv[1])\n")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", code, str(root)],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=600)
+    if out.returncode != 0:
+        fail(f"train resume check: exit {out.returncode}\n"
+             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    rec["wall_s"] = time.perf_counter() - t0
+    print(f"train_lm (stablelm-3b-smoke, 200 steps with a resume at 60): "
+          f"final loss {rec['train_lm_loss']:.4f} in "
+          f"{rec['train_lm_s']:.1f} s; launch.train straight vs resumed at "
+          f"step 3: {rec['resume_arrays'] - len(rec['resume_differ'])} of "
+          f"{rec['resume_arrays']} arrays bit-equal at step 6; "
+          f"{rec['wall_s']:.1f} s", flush=True)
+    if rec["resume_differ"]:
+        fail(f"train resume: arrays differ at step 6: "
+             f"{rec['resume_differ'][:8]}")
+    return rec
+
+
+def run_card_twins(kernels) -> tuple:
+    """``benchmarks/torch_port/engine_serving.py`` and
+    ``examples/torch_port/serve_e2e.py`` on the card: every request
+    served, both attention kernels launched; -> (record, launches)."""
+    import importlib.util
+
+    from benchmarks.torch_port import engine_serving
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    rows = engine_serving.run("cuda")
+    rec = {"engine_serving": rows,
+           "engine_serving_s": time.perf_counter() - t0}
+    spec = importlib.util.spec_from_file_location(
+        "serve_e2e", ROOT / "examples" / "torch_port" / "serve_e2e.py")
+    serve_e2e = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(serve_e2e)
+    t0 = time.perf_counter()
+    rt = serve_e2e.main(["--device", "cuda"])
+    s = rt.telemetry.overall()
+    rec["serve_e2e"] = {"n": s.n, "submitted": rt.submitted,
+                        "p50_ms": s.p50 * 1e3, "p99_ms": s.p99 * 1e3,
+                        "wall_s": time.perf_counter() - t0}
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels}
+    print(f"card twins: engine_serving {rows}; serve_e2e {rec['serve_e2e']};"
+          f" launches {launches}", flush=True)
+    for r in rows + [rec["serve_e2e"]]:
+        if r["n"] < 1 or r["n"] != r["submitted"]:
+            fail(f"card twins: {r['n']} of {r['submitted']} requests served")
+    for name in ("flash_attention", "decode_attention"):
+        if launches[name] < 1:
+            fail(f"card twins: kernel {name} was not launched")
+    return rec, launches
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a "
              "CUDA GPU")
@@ -2298,6 +2632,29 @@ def main() -> int:
         launches[name] += n
     record["engine_control_launches"] = ec_launches
 
+    # ---- main path 5 (step 6g), training at full width ---------------------
+    record["train_agreement"] = {}
+    for arch, seq in TRAIN_AGREEMENT:
+        rec, n = check_train_agreement(device, arch, seq, all_kernels)
+        record["train_agreement"][arch] = rec
+        for name, count in n.items():
+            launches[name] += count
+    record["training"] = {}
+    for arch, seq in TRAIN_RUNS:
+        rec, n = run_training(arch, seq, all_kernels)
+        record["training"][arch] = rec
+        for name, count in n.items():
+            launches[name] += count
+    resume_root = Path(tempfile.mkdtemp(prefix="chip_smoke_train.",
+                                        dir=ROOT / "build"))
+    try:
+        record["train_resume"] = run_train_resume(resume_root)
+    finally:
+        shutil.rmtree(resume_root, ignore_errors=True)
+    record["card_twins"], twin_launches = run_card_twins(all_kernels)
+    for name, count in twin_launches.items():
+        launches[name] += count
+
     # ---- the kernels line ---------------------------------------------------
     src = "src/repro_torch/kernels/csrc/"
     checks = record["checks"]
@@ -2338,6 +2695,8 @@ def main() -> int:
             fail(f"kernel {e['name']}: {e['ms']:.5f} ms reads under its "
                  f"bound {e['bound_ms']:.5f} ms")
     record["kernels"] = entries
+    record["wall_s"] = time.perf_counter() - t_start
+    print(f"chip_smoke: {record['wall_s']:.1f} s", flush=True)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(record, indent=1))

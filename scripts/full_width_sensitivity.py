@@ -5,6 +5,8 @@ why: the kernels, the card, or the model itself.
         [--layers N] [--prompt N]
     python3 scripts/full_width_sensitivity.py --check whisper-small
         [--reference-draw]
+    python3 scripts/full_width_sensitivity.py --train phi3-mini-3.8b
+        [--reference-draw]
 
 Builds ``--arch`` at full width and ``--layers`` deep (default: one
 pattern group of gemma3-12b, 6 layers, with chip_smoke's 1100-token
@@ -25,7 +27,11 @@ difference| / max|logit| of:
   conditioning.
 
 Where the first two agree and the third is as large, the gap is the
-model's, not a kernel's.  The record goes to
+model's, not a kernel's.  ``--train`` does the same for chip_smoke step
+6g's train-step agreement (``TRAIN_AGREEMENT``: the arch at full width,
+2 layers, f32, its batch, its draw; ``--reference-draw`` as above): the
+loss, the gradients' global norm and every gradient leaf (relative to
+the leaf's max|g|), CPU against card.  The record goes to
 ``chiprun_out/full_width_sensitivity_<arch>.json``.
 """
 from __future__ import annotations
@@ -53,9 +59,12 @@ def main(argv=None) -> int:
     ap.add_argument("--prompt", type=int, default=1100)
     ap.add_argument("--check", default=None,
                     help="an arch of chip_smoke's FULL_WIDTH_CHECKS")
+    ap.add_argument("--train", default=None,
+                    help="an arch of chip_smoke's TRAIN_AGREEMENT")
     ap.add_argument("--reference-draw", action="store_true",
-                    help="with --check: the weights at init_params' "
-                         "scales, not the check's layer_std ones")
+                    help="with --check or --train: the weights at "
+                         "init_params' scales, not the check's layer_std "
+                         "ones")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("this script needs a CUDA GPU", file=sys.stderr)
@@ -69,6 +78,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     t0 = time.perf_counter()
+    if args.train:
+        return train_sensitivity(args.train, dev, t0, args.reference_draw)
     if args.check:
         chk = next(c for c in cs.FULL_WIDTH_CHECKS
                    if c["arch"] == args.check)
@@ -130,6 +141,74 @@ def main(argv=None) -> int:
     if args.reference_draw:
         name += "_reference_draw"
     (out / f"full_width_sensitivity_{name}.json").write_text(
+        json.dumps(rec, indent=1))
+    return 0
+
+
+def train_sensitivity(arch: str, dev, t0: float,
+                      reference_draw: bool) -> int:
+    """The train-step counterpart of ``main`` (``--train``), on the
+    check's draw (``layer_std_specs``) or the reference's."""
+    import chip_smoke as cs
+    from repro_torch.kernels import ops
+    from repro_torch.models import param as P
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    seq = dict(cs.TRAIN_AGREEMENT)[arch]
+    cfg, params, *_ = cs.full_width_model(arch, 2,
+                                          layer_std=not reference_draw)
+    p32 = cs.f32_tree(params)
+    del params
+    data = SyntheticLM(DataConfig(cfg.vocab_size, cs.TRAIN_BATCH, seq))
+    batch = {k: torch.from_numpy(v) for k, v in data.next_batch().items()}
+    loss, norm, grads = cs.train_loss_and_grads(cfg, p32, batch)
+
+    def gaps(run):
+        l2, n2, g2 = run
+        leaf = {}
+        for path, g in grads.items():
+            scale = g.abs().max().item()
+            leaf["/".join(path)] = ((g2[path].cpu() - g).abs().max().item()
+                                    / (scale if scale else 1.0))
+        return {"loss_rel": abs(l2 - loss) / abs(loss),
+                "grad_norm_rel": abs(n2 - norm) / norm,
+                "grad_rel_max": max(leaf.values()), "grad_rel": leaf}
+    rec = {"arch": cfg.name, "layers": cfg.num_layers, "seq": seq,
+           "batch": cs.TRAIN_BATCH, "device": torch.cuda.get_device_name(0),
+           "reference_draw": reference_draw, "loss": loss,
+           "grad_norm": norm}
+    on_card = P.tree_map(lambda t: t.to(dev), p32)
+    card_batch = {k: v.to(dev) for k, v in batch.items()}
+    rec["card_kernels"] = gaps(cs.train_loss_and_grads(cfg, on_card,
+                                                       card_batch))
+    on_cuda = ops._on_cuda
+    ops._on_cuda = lambda x: False           # the plain versions, on the card
+    try:
+        rec["card_plain"] = gaps(cs.train_loss_and_grads(cfg, on_card,
+                                                         card_batch))
+    finally:
+        ops._on_cuda = on_cuda
+    del on_card
+    torch.cuda.empty_cache()
+    g = torch.Generator().manual_seed(7)
+
+    def nudge(t):
+        if t.dim() < 2:
+            return t
+        sign = torch.randint(0, 2, t.shape, generator=g).float() * 2 - 1
+        return torch.nextafter(t, t + sign * torch.inf)
+    rec["cpu_weights_1ulp"] = gaps(cs.train_loss_and_grads(
+        cfg, P.tree_map(nudge, p32), batch))
+    rec["seconds"] = time.perf_counter() - t0
+    for key in ("card_kernels", "card_plain", "cpu_weights_1ulp"):
+        r = rec[key]
+        worst = max(r["grad_rel"], key=r["grad_rel"].get)
+        print(f"{cfg.name} train {key}: loss {r['loss_rel']:.3e}, grad norm "
+              f"{r['grad_norm_rel']:.3e}, worst leaf {worst} "
+              f"{r['grad_rel_max']:.3e}", flush=True)
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    name = arch + ("_reference_draw" if reference_draw else "")
+    (out / f"full_width_sensitivity_train_{name}.json").write_text(
         json.dumps(rec, indent=1))
     return 0
 

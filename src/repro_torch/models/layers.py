@@ -72,11 +72,35 @@ def mlp_specs(cfg: ArchConfig, d_ff: Optional[int] = None) -> dict:
     return out
 
 
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return torch.reciprocal(1.0 + torch.exp(-x))
+
+
+class _Logistic(torch.autograd.Function):
+    """``lax.logistic``: ``1 / (1 + exp(-x))`` forward, and its own
+    derivative ``s (1 - s)`` backward, as JAX defines it.  The composed
+    ops' backward is NaN where ``exp(-x)`` overflows (x < -88 in f32):
+    ``0 * inf`` through the reciprocal and the exp."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = _sigmoid(x)
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return g * (s * (1.0 - s))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``x * sigmoid(x)`` as ``jax.nn.silu`` computes it: the sigmoid is
     ``1 / (1 + exp(-x))``, every step rounded to x's dtype (in bf16
-    ``F.silu``, which rounds once, differs in about 40 % of values)."""
-    return x * torch.reciprocal(1.0 + torch.exp(-x))
+    ``F.silu``, which rounds once, differs in about 40 % of values);
+    with a gradient, the sigmoid's is ``lax.logistic``'s (``_Logistic``)."""
+    grad = torch.is_grad_enabled() and x.requires_grad
+    return x * (_Logistic.apply(x) if grad else _sigmoid(x))
 
 
 @functools.lru_cache(maxsize=None)

@@ -45,6 +45,17 @@ def leaves(tree, path: tuple = ()):
         yield path, tree
 
 
+def unflatten(pairs) -> dict:
+    """``(key path, leaf)`` pairs -> the nested dict they spell."""
+    out: dict = {}
+    for path, leaf in pairs:
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
+
+
 def tree_map(fn, tree):
     """Apply ``fn`` to every leaf of a nested dict, keeping its keys."""
     if isinstance(tree, dict):
@@ -79,13 +90,7 @@ def init_tree(tree, generator: torch.Generator, device=None) -> dict:
         # stacked expert bank is 5.2 G values, 20.7 GB in f32)
         return x.mul_(std).to(s.dtype).to(device)
 
-    out: dict = {}
-    for path, s in leaves(tree):
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = make(s)
-    return out
+    return unflatten((path, make(s)) for path, s in leaves(tree))
 
 
 def _to_tensor(a, device) -> torch.Tensor:

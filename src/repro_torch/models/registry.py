@@ -119,14 +119,15 @@ def _embed_input(cfg: ArchConfig, params: dict, batch: dict):
     return x, torch.arange(x.shape[1], device=x.device)
 
 
-def _encode(cfg: ArchConfig, params: dict, frames: torch.Tensor):
+def _encode(cfg: ArchConfig, params: dict, frames: torch.Tensor, *,
+            remat: bool = False):
     """The encoder: ``frames (B, T, 128)`` rounded to bf16, projected,
     through the ``enc_groups`` stack (bidirectional attention, positions
     ``0..T-1``) and ``enc_norm`` -> ``(B, T, D)``."""
     x = matmul(frames.to(BF16), params["frontend"]["proj"])
     x = T.run_stack_seq(cfg, params["enc_groups"], x,
                         positions=torch.arange(x.shape[1], device=x.device),
-                        pattern=(ENC_ATTN,))
+                        remat=remat, pattern=(ENC_ATTN,))
     return apply_norm(cfg, params["enc_norm"], x)
 
 
@@ -135,12 +136,17 @@ def _enc_out(cfg: ArchConfig, params: dict, batch: dict):
 
 
 def lm_hidden(cfg: ArchConfig, params: dict, batch: dict, *,
-              moe_impl: str = "dispatch") -> torch.Tensor:
-    """Full forward -> final hidden states (B, S, D)."""
-    enc_out = _enc_out(cfg, params, batch)
+              moe_impl: str = "dispatch",
+              remat: bool = False) -> torch.Tensor:
+    """Training/eval forward -> final hidden states (B, S, D).  ``remat``
+    recomputes each group's forward in the backward (training); serving
+    keeps it off.  The reference defaults to ``remat=True``, which only a
+    backward can tell apart."""
+    enc_out = (_encode(cfg, params, batch["frames"], remat=remat)
+               if cfg.enc_dec else None)
     x, positions = _embed_input(cfg, params, batch)
     x = T.run_stack_seq(cfg, params["groups"], x, positions=positions,
-                        moe_impl=moe_impl, enc_out=enc_out)
+                        moe_impl=moe_impl, remat=remat, enc_out=enc_out)
     return apply_norm(cfg, params["final_norm"], x)
 
 

@@ -22,6 +22,7 @@ its mixer and its FFN: ``x + xattn(xnorm(x))``.
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ATTN, ATTN_SWA, ENC_ATTN, MAMBA, ArchConfig
 from repro_torch.models import attention as attn_mod
@@ -188,17 +189,35 @@ def apply_block_decode(cfg: ArchConfig, p: dict, kind: str, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 def run_stack_seq(cfg: ArchConfig, groups: dict, x: torch.Tensor, *,
                   positions: torch.Tensor, moe_impl: str = "dispatch",
-                  pattern=None, enc_out=None) -> torch.Tensor:
+                  remat: bool = False, pattern=None,
+                  enc_out=None) -> torch.Tensor:
     """Every group of the stacked tree ``groups`` over ``x``, each a
     repetition of ``pattern`` (default ``cfg.resolved_pattern``); cross
-    blocks read ``enc_out``."""
+    blocks read ``enc_out``.  ``remat`` runs each group under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the
+    scan body): the backward recomputes the group's forward instead of
+    keeping its activations.  The groups are ``unbind`` views of the
+    stacked leaves, so a backward gathers each leaf's gradient with one
+    ``stack`` (an indexed view would add a stack-sized zero tensor a
+    group)."""
     pattern = pattern or cfg.resolved_pattern
-    for g in range(n_groups(groups)):
-        gp = group_slice(groups, g)
+    per_group = tree_map(lambda t: t.unbind(0), groups)
+
+    def group_fn(h, g):
+        gp = tree_map(lambda u: u[g], per_group)
         for i, kind in enumerate(pattern):
-            x, _ = apply_block_seq(cfg, gp[f"pos{i}"], kind, x,
+            h, _ = apply_block_seq(cfg, gp[f"pos{i}"], kind, h,
                                    positions=positions, moe_impl=moe_impl,
                                    enc_out=enc_out)
+        return h
+
+    for g in range(n_groups(groups)):
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                group_fn, x, g, use_reentrant=False,
+                preserve_rng_state=False)          # no random op inside
+        else:
+            x = group_fn(x, g)
     return x
 
 

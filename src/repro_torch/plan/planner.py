@@ -236,9 +236,10 @@ def run_plan(spec: PlanSpec, *,
         return loss.detach(), {k: v.detach() for k, v in aux.items()}, \
             dict(zip(leaves, grads))
 
-    opt_cfg = OptConfig(lr=spec.lr, grad_clip=5.0,
+    opt_cfg = OptConfig(lr=spec.lr, weight_decay=0.0, grad_clip=5.0,
                         warmup_steps=max(2, spec.steps // 20),
-                        total_steps=spec.steps, schedule=spec.schedule)
+                        total_steps=spec.steps, m_dtype="float32",
+                        schedule=spec.schedule)
     lo = {k: b[1] for k, b in boxes.items()}
     hi = {k: b[2] for k, b in boxes.items()}
 
@@ -247,7 +248,7 @@ def run_plan(spec: PlanSpec, *,
         params = {k: torch.tensor(_spread_inits(boxes[k], s, spec.starts),
                                   dtype=torch.float32, device=device)
                   for k in boxes}
-        state = init_opt_state(params)
+        state = init_opt_state(params, opt_cfg)
         history = []
         for _ in range(spec.steps):
             val, _aux, grads = value_and_grad(params)

@@ -1,2 +1,2 @@
-"""Training utilities of the port (``repro.training`` trimmed to what the
-planner uses: the AdamW optimizer)."""
+"""Training of the port (copy of ``repro.training``): the synthetic data
+stream, AdamW and the train step."""

@@ -1,11 +1,20 @@
-"""AdamW over a dict of parameter tensors.
+"""AdamW with memory-frugal moment dtypes (bf16 m / fp32 v by default).
 
-Trimmed copy of ``repro.training.optimizer``: ``OptConfig``,
-``init_opt_state``, ``lr_at``, ``global_norm`` and ``adamw_update``, in
-the reference's operation order, on the device of the parameters.  It
-keeps what the planner uses: both moments in f32, the reference's
-default betas and epsilon as constants, and no weight decay.  Updates
-carry no gradient (the caller runs them under ``torch.no_grad()``).
+Copy of ``repro.training.optimizer`` in PyTorch: ``OptConfig``,
+``init_opt_state``, ``lr_at``, ``global_norm`` and ``adamw_update`` over
+nested dict trees, walked in the order ``jax.tree_util`` flattens them
+(sorted keys at every level, ``param.leaves``), with the reference's
+operation order.  The first moment tolerates bf16 (magnitude tracking);
+the second needs fp32 (tiny values squared).
+
+``adamw_update`` writes the parameters and both moments in place, leaf
+by leaf and slice by slice (``UPDATE_SLICE`` elements at a time), under
+``torch.no_grad()``: every step is element-wise, so the slices give the
+same bits as whole leaves, and the f32 temporaries stay a few slices
+big where phi3-mini-3.8b's stacked MLP leaves hold 805 M values each.
+The JAX package returns new trees instead (its jitted step donates the
+old ones).  ``abstract_opt_state`` (shapes for the dry-run) is not
+ported: the port has no dry-run (ROADMAP Queue A item 8).
 """
 from __future__ import annotations
 
@@ -14,30 +23,47 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.models.param import leaves
+
 F32 = torch.float32
 
-#: the reference ``OptConfig``'s default moment decays and epsilon
-B1 = 0.9
-B2 = 0.95
-EPS = 1e-8
+#: elements of one leaf updated at a time (a 256 MB f32 temporary)
+UPDATE_SLICE = 1 << 26
 
 
 @dataclass(frozen=True)
 class OptConfig:
     lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
     grad_clip: float = 1.0
     warmup_steps: int = 100
     total_steps: int = 10_000
+    m_dtype: str = "bfloat16"      # bf16 first moment (ZeRO-friendly)
+    v_dtype: str = "float32"
     schedule: str = "cosine"       # cosine | constant (post-warmup shape)
 
 
-def init_opt_state(params: dict) -> dict:
-    m = {k: torch.zeros(p.shape, dtype=F32, device=p.device)
-         for k, p in params.items()}
-    v = {k: torch.zeros(p.shape, dtype=F32, device=p.device)
-         for k, p in params.items()}
-    device = next(iter(params.values())).device if params else None
-    return {"m": m, "v": v,
+def _get(tree: dict, path: tuple):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _zeros_like_tree(tree, dtype: torch.dtype):
+    if isinstance(tree, dict):
+        return {k: _zeros_like_tree(v, dtype) for k, v in tree.items()}
+    return torch.zeros(tree.shape, dtype=dtype, device=tree.device)
+
+
+def init_opt_state(params: dict, cfg: OptConfig) -> dict:
+    """Zero moments shaped as ``params`` (``cfg.m_dtype``, ``cfg.v_dtype``)
+    and step 0, on the parameters' device."""
+    device = next(leaves(params))[1].device
+    return {"m": _zeros_like_tree(params, getattr(torch, cfg.m_dtype)),
+            "v": _zeros_like_tree(params, getattr(torch, cfg.v_dtype)),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
@@ -56,36 +82,53 @@ def lr_at(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def global_norm(tree: dict) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, summed in sorted key
-    order (the order ``jax.tree_util`` flattens a dict in)."""
+    """sqrt of the sum of squares of every leaf, summed leaf after leaf in
+    ``jax.tree_util``'s order (sorted keys at every level)."""
     total = 0
-    for k in sorted(tree):
-        total = total + torch.sum(torch.square(tree[k].to(F32)))
+    for _, t in leaves(tree):
+        total = total + torch.sum(torch.square(t.to(F32)))
     return torch.sqrt(total)
+
+
+def _update_slice(p, g, m, v, scale, lr, bc1, bc2, cfg: OptConfig) -> None:
+    """One slice of one leaf, in place: the reference's ``upd``."""
+    b1, b2 = cfg.b1, cfg.b2
+    g = g.to(F32) * scale
+    m32 = m.to(F32, copy=True)
+    m32.mul_(b1).add_(g * (1 - b1))                 # b1 m + (1 - b1) g
+    v32 = v.to(F32, copy=True)
+    v32.mul_(b2).add_(g.square_().mul_(1 - b2))     # b2 v + (1 - b2) g^2
+    m.copy_(m32)
+    v.copy_(v32)
+    delta = m32.div_(bc1)                           # mhat
+    delta.div_(v32.div_(bc2).sqrt_().add_(cfg.eps))
+    p32 = p.to(F32)
+    delta.add_(g.copy_(p32).mul_(cfg.weight_decay))
+    p.copy_(p32.sub_(delta.mul_(lr)))
 
 
 def adamw_update(params: dict, grads: dict, opt_state: dict,
                  cfg: OptConfig) -> tuple:
-    """-> (new_params, new_opt_state, metrics)."""
+    """-> (params, opt_state, metrics); ``params`` and the moments of
+    ``opt_state`` are updated in place (the returned trees are the same
+    tensors), the step is a new tensor."""
     step = opt_state["step"] + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     lr = lr_at(cfg, step)
-    bc1 = 1 - B1 ** step.to(F32)
-    bc2 = 1 - B2 ** step.to(F32)
-    new_p, new_m, new_v = {}, {}, {}
-    for k, p in params.items():
-        m, v = opt_state["m"][k], opt_state["v"][k]
-        g = grads[k].to(F32) * scale
-        m_new = B1 * m + (1 - B1) * g
-        v_new = B2 * v + (1 - B2) * torch.square(g)
-        mhat = m_new / bc1
-        vhat = v_new / bc2
-        delta = mhat / (torch.sqrt(vhat) + EPS)
-        p_new = p.to(F32) - lr * delta
-        new_p[k] = p_new.to(p.dtype)
-        new_m[k] = m_new
-        new_v[k] = v_new
+    bc1 = 1 - cfg.b1 ** step.to(F32)
+    bc2 = 1 - cfg.b2 ** step.to(F32)
+    with torch.no_grad():
+        for path, p in leaves(params):
+            g = _get(grads, path).reshape(-1)
+            m = _get(opt_state["m"], path).view(-1)
+            v = _get(opt_state["v"], path).view(-1)
+            flat = p.view(-1)
+            for i in range(0, flat.numel(), UPDATE_SLICE):
+                sl = slice(i, i + UPDATE_SLICE)
+                _update_slice(flat[sl], g[sl], m[sl], v[sl], scale, lr,
+                              bc1, bc2, cfg)
     metrics = {"grad_norm": gnorm, "lr": lr}
-    return new_p, {"m": new_m, "v": new_v, "step": step}, metrics
+    return params, {"m": opt_state["m"], "v": opt_state["v"],
+                    "step": step}, metrics

@@ -481,6 +481,69 @@ def test_ssd_scan_kernel_close_to_plain(cuda, b, s, h, p, n, chunk, h0,
         _ssd_f32_close(got, th, chunk)
 
 
+def _plain_grads(fn, inputs, upstream):
+    xs = [x.detach().requires_grad_(True) for x in inputs]
+    outs = fn(*xs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    return torch.autograd.grad(outs, xs, upstream)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,hd", [
+    (8, 128, 32, 96),                      # phi3-mini-3.8b's training batch
+    (2, 300, 4, 64),                       # ragged tiles
+])
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_flash_attention_gradient_on_the_card(cuda, B, S, H, hd, dtype):
+    """``ops.flash_attention`` on inputs that need a gradient: one kernel
+    launch forward, and the gradient of the plain version recomputed on
+    the card, equal to autograd of ``ref.flash_attention`` there."""
+    g = np.random.default_rng((B, S, hd))
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    q, k, v, up = (_bf16(g, B, S, H, hd, device=cuda, dtype=dt)
+                   for _ in range(4))
+    xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = flash_attention.flash_attention.launches
+    out = ops.flash_attention(*xs)
+    assert flash_attention.flash_attention.launches == before + 1
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    got = torch.autograd.grad(out, xs, up)
+    assert flash_attention.flash_attention.launches == before + 1
+    want = _plain_grads(lambda a, b, c: ref.flash_attention(a, b, c),
+                        (q, k, v), (up,))
+    for a, b in zip(got, want):
+        assert a.dtype == dt and torch.equal(a, b)
+    _within(out, ref.flash_attention(q, k, v), v,
+            F32_TOL if dtype == "f32" else ATTN_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (8, 512, 64, 64, 128, 256),            # mamba2-1.3b's training batch
+    (1, 96, 2, 24, 40, 48),                # ragged tiles
+])
+def test_ssd_scan_gradient_on_the_card(cuda, b, s, h, p, n, chunk):
+    """``ops.ssd_scan`` on inputs that need a gradient (bf16 x, B, C as
+    the model gives them): one kernel launch forward, and the gradient
+    of ``ref.ssd_chunked`` recomputed on the card, equal to autograd of
+    it there."""
+    g = np.random.default_rng((b, s, p, n))
+    x, dt, A, B, C, _ = _ssd_inputs(g, cuda, b, s, h, p, n, "bf16", False)
+    gy = torch.from_numpy(g.standard_normal((b, s, h, p)).astype(np.float32)
+                          ).to(cuda)
+    xs = [t.clone().requires_grad_(True) for t in (x, dt, A, B, C)]
+    before = ssd_scan.ssd_scan.launches
+    y, hN = ops.ssd_scan(*xs, chunk=chunk)
+    assert ssd_scan.ssd_scan.launches == before + 1
+    got = torch.autograd.grad(y, xs, gy)
+    assert ssd_scan.ssd_scan.launches == before + 1
+    want = _plain_grads(
+        lambda *a: ref.ssd_chunked(*a, chunk=chunk), (x, dt, A, B, C),
+        (gy, torch.zeros_like(hN)))
+    for a, c in zip(got, want):
+        assert a.dtype == c.dtype and torch.equal(a, c)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("p,n", [(129, 128), (128, 129)])
 def test_ssd_scan_refuses_past_its_limits(cuda, p, n):

@@ -361,16 +361,15 @@ def test_lr_schedule_constant_vs_cosine():
 def test_adamw_matches_reference():
     """Twenty clipped AdamW steps over a dict of 0-d f32 parameters on
     fixed gradients: the reference's update within rtol 1e-6."""
+    # the planner's choices: no decay, both moments in f32
     cfg = opt.OptConfig(lr=0.15, grad_clip=5.0, warmup_steps=3,
-                        total_steps=20)
-    # the port's fixed choices, spelled out for the reference
-    jcfg = jopt.OptConfig(**cfg.__dict__, b1=opt.B1, b2=opt.B2, eps=opt.EPS,
-                          weight_decay=0.0, m_dtype="float32",
-                          v_dtype="float32")
+                        total_steps=20, weight_decay=0.0, m_dtype="float32",
+                        v_dtype="float32")
+    jcfg = jopt.OptConfig(**cfg.__dict__)
     init = {"capacity": 4.0, "admit": 0.9, "hedge_delay": 0.05}
     tp = {k: torch.tensor(v) for k, v in init.items()}
     jp = {k: jnp.asarray(v, jnp.float32) for k, v in init.items()}
-    ts, js = opt.init_opt_state(tp), jopt.init_opt_state(jp, jcfg)
+    ts, js = opt.init_opt_state(tp, cfg), jopt.init_opt_state(jp, jcfg)
     r = np.random.default_rng(11)
     for _ in range(20):
         g = {k: np.float32(r.normal(scale=4.0)) for k in init}

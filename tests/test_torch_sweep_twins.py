@@ -28,7 +28,8 @@ reference scripts (``benchmarks/``), on the CPU.
 * The ``fig_batching`` twin declares the reference's grid (the
   ``runtime`` axis over ``sim`` and ``engine``), gives its ``--quick``
   frame row for row and passes its knee gate with the same knees.
-* The twins and ``chip_smoke.py`` import neither ``jax`` nor ``repro``.
+* The twins, the example twins, the port and ``chip_smoke.py`` import
+  neither ``jax``, ``repro`` nor ``ml_dtypes``.
 """
 from __future__ import annotations
 
@@ -251,20 +252,56 @@ def test_bench_cache_twin_needs_a_card_or_device_cpu(tmp_path):
     assert "fig1 grid" not in out.stderr
 
 
+#: what the port, its twins and chip_smoke must never import
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
+
+
+def _imported_roots(path: str) -> set:
+    import ast
+    tree = ast.parse(open(path).read(), path)
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
 def test_twins_and_chip_smoke_import_neither_jax_nor_repro():
+    """Imported, the twins, the training modules and ``chip_smoke.py``
+    load none of ``FORBIDDEN``; and no import statement anywhere in the
+    port, the twins, the example twins (scripts: read, not run) or
+    ``chip_smoke.py`` names one."""
     twins = FIGURES + ["fig_batching", "bench_vector", "bench_plan",
-                       "bench_cache", "run", "common", "_record"]
+                       "bench_cache", "bench_control", "bench_sweep",
+                       "bench_simulator", "_seed_sim", "engine_serving",
+                       "run", "common", "_record"]
+    modules = ["repro_torch.training.data", "repro_torch.training.optimizer",
+               "repro_torch.training.train_step",
+               "repro_torch.checkpoint.store", "repro_torch.launch.train"]
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
         f"for n in {twins!r}:\n"
         "    importlib.import_module('benchmarks.torch_port.' + n)\n"
+        f"for n in {modules!r}:\n"
+        "    importlib.import_module(n)\n"
         "import chip_smoke\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
-        "('jax', 'jaxlib', 'repro'))\n"
+        f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], env=_no_card_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for top in ("src/repro_torch", "benchmarks/torch_port",
+                "examples/torch_port"):
+        for d, _, names in os.walk(os.path.join(REPO, top)):
+            files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    assert any("examples/torch_port/train_lm.py" in f for f in files)
+    for f in files:
+        bad = _imported_roots(f) & set(FORBIDDEN)
+        assert not bad, (f, bad)
