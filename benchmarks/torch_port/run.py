@@ -7,8 +7,9 @@ tables land in ``artifacts/bench_torch/*.csv``.
     PYTHONPATH=src:. python benchmarks/torch_port/run.py
 
 ``engine_serving`` serves a smoke model on the card (its own
-``--device cpu`` is not reachable from here).  Left out until the port
-carries what it needs: ``roofline_table`` (ROADMAP Queue A item 8).
+``--device cpu`` is not reachable from here).  ``roofline_table`` reads
+the dry-run's results (``python -m repro_torch.launch.dryrun --all``
+first; without them it reports ``cells=0``).
 """
 from __future__ import annotations
 
@@ -21,11 +22,12 @@ def main() -> None:
                                        engine_serving, fig1_qps_latency,
                                        fig4_equivalence, fig5_multiserver,
                                        fig6_interleaved, fig7_dynamic_qps,
-                                       fig8_balancing, fig_batching, hedging)
+                                       fig8_balancing, fig_batching, hedging,
+                                       roofline_table)
     benches = [fig1_qps_latency, fig4_equivalence, fig5_multiserver,
                fig6_interleaved, fig7_dynamic_qps, fig8_balancing,
-               fig_batching, hedging, bench_plan, bench_cache,
-               engine_serving]
+               fig_batching, hedging, roofline_table, bench_plan,
+               bench_cache, engine_serving]
     print("name,us_per_call,derived")
     failures = 0
     for b in benches:

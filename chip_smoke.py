@@ -159,11 +159,25 @@ trains phi3-mini-3.8b and mamba2-1.3b at full width and depth:
    removed at the end); then ``benchmarks/torch_port/engine_serving.py``
    and ``examples/torch_port/serve_e2e.py`` on the card, every request
    served and both attention kernels launched;
-7. times each kernel, its plain version and, where one PyTorch call
+7. runs the launch tooling where the port runs (``run_tooling``): the
+   meta-device dry-run (``repro_torch.launch.dryrun.run_cell``) of
+   phi3-mini-3.8b at ``train_4k``, ``prefill_32k`` and ``decode_32k``
+   on the one-card mesh, with its roofline (``launch.roofline``); then
+   the dry-run of step 6g's phi3 training shape (batch 8 x 128, bf16
+   weights, bf16 ``m``, f32 ``v``) against the state ``launch.train``
+   builds on the card (``init_params``, ``init_opt_state``, a
+   ``SyntheticLM`` batch): the same leaves (path, shape, dtype), the
+   same bytes, and a rise in ``torch.cuda.memory_allocated()`` above
+   the dry-run's bytes by no more than the caching allocator's
+   rounding (``_allocator_slack``), its temp estimate printed beside
+   6g's peak; and
+   the roofline's ``ideal_s`` at 6g's train step and step 6's phi3
+   decode step over the measured steps (the roofline shares);
+8. times each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, with CUDA events (median of
    repeated runs), and fails where a kernel's time reads under its
    bound (every SSD case, and every kernel of the kernels line);
-8. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
+9. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
    ...}`` line.
 
 Any failed phase exits non-zero.  Without a CUDA device, or without the
@@ -2389,6 +2403,158 @@ def run_card_twins(kernels) -> tuple:
     return rec, launches
 
 
+# ---------------------------------------------------------------------------
+# Step 7: the launch tooling on the card
+# ---------------------------------------------------------------------------
+TOOLING_ARCH = "phi3-mini-3.8b"
+TOOLING_CELLS = ("train_4k", "prefill_32k", "decode_32k")
+
+
+def _allocator_slack(nbytes: int) -> int:
+    """Most bytes the CUDA caching allocator can count above a request of
+    ``nbytes`` in ``memory_allocated()``: requests round up to 512 B;
+    a block of the large pool (over 1 MiB) is split only when more than
+    1 MiB of it would be left, so up to 1 MiB more can stay with it."""
+    return 511 + (1 << 20 if nbytes > 1 << 20 else 0)
+
+
+def _leaf_meta(trees) -> dict:
+    """(argument index, key path) -> (shape, dtype) of every leaf."""
+    from repro_torch.models.param import leaves
+    return {(i, path): (tuple(t.shape), t.dtype)
+            for i, tree in enumerate(trees) for path, t in leaves(tree)}
+
+
+def run_tooling(record: dict, card: str) -> dict:
+    """Step 7: the dry-run of phi3's shape cells, the argument-bytes
+    check against the card, and the measured roofline shares of 6g's
+    train step and step 6's decode step."""
+    import gc
+
+    from repro_torch.configs.base import ShapeCell, get_config
+    from repro_torch.launch import dryrun, mesh, roofline
+    from repro_torch.models.param import leaves
+    from repro_torch.models.registry import count_params, init_params
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    t_phase = time.perf_counter()
+    out = {"cells": {}}
+    for shape in TOOLING_CELLS:
+        t0 = time.perf_counter()
+        r = dryrun.run_cell(TOOLING_ARCH, shape, save=False)
+        a = roofline.analyze(r)
+        mem = r["memory"]
+        rec = {"flops": r["flops"], "bytes_accessed": r["bytes_accessed"],
+               "args_gib": mem["argument_size_in_bytes"] / 2**30,
+               "temp_gib": mem["temp_size_in_bytes"] / 2**30,
+               "fits_80gb": (mem["argument_size_in_bytes"]
+                             + mem["temp_size_in_bytes"]) < 80e9,
+               "dominant": a.dominant,
+               "roofline_fraction": a.roofline_fraction,
+               "s": time.perf_counter() - t0}
+        out["cells"][shape] = rec
+        print(f"dryrun {TOOLING_ARCH} {shape} (meta, one card): flops "
+              f"{rec['flops']:.4e}, bytes {rec['bytes_accessed']:.4e}, args "
+              f"{rec['args_gib']:.2f} GiB, temp {rec['temp_gib']:.2f} GiB, "
+              f"fits 80 GB {rec['fits_80gb']}, dominant {rec['dominant']}, "
+              f"roofline {rec['roofline_fraction']:.4f}, {rec['s']:.1f} s",
+              flush=True)
+        for key in ("flops", "bytes_accessed"):
+            if not rec[key] > 0:
+                fail(f"dryrun {shape}: {key} = {rec[key]}")
+
+    # ---- 6g's training shape: the dry-run's arguments against the state
+    # ---- that launch.train builds on the card --------------------------------
+    cfg = get_config(TOOLING_ARCH)
+    one_card = dryrun.MESHES["card"]
+    train_cell = ShapeCell("train_6g", "train", 128, TRAIN_BATCH)
+    step, args, specs = dryrun.build_cell(cfg, train_cell, one_card, "sp")
+    arg_bytes = dryrun.argument_bytes(args, specs, one_card)
+    counts = dryrun.count_step(step, args)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    # as launch.train does: its params, optimizer state and batch
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    opt = init_opt_state(params, OptConfig())
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  batch=TRAIN_BATCH, seq_len=128))
+    batch = {k: torch.from_numpy(v).to("cuda")
+             for k, v in data.next_batch().items()}
+    torch.cuda.synchronize()
+    rise = torch.cuda.memory_allocated() - before
+    real = _leaf_meta((params, opt, batch))
+    want = _leaf_meta(args)
+    real_bytes = sum(t.numel() * t.element_size() for trees in
+                     (params, opt, batch) for _, t in leaves(trees))
+    slack = sum(_allocator_slack(t.numel() * t.element_size())
+                for trees in (params, opt, batch) for _, t in leaves(trees))
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    peak_gb = record["training"][TOOLING_ARCH]["peak_gb"]
+    out["train_6g"] = {"arg_bytes": arg_bytes, "state_bytes": real_bytes,
+                       "leaves": len(real), "allocated_rise": rise,
+                       "over": rise - arg_bytes, "slack_limit": slack,
+                       "temp_bytes": counts["temp_size_in_bytes"],
+                       "flops": counts["flops"], "peak_gb_6g": peak_gb}
+    print(f"dryrun {TOOLING_ARCH} 6g train (batch {TRAIN_BATCH}x128): "
+          f"{len(want)} argument leaves against launch.train's "
+          f"{len(real)}; argument bytes {arg_bytes} against the state's "
+          f"{real_bytes} and the card's rise in memory_allocated {rise} "
+          f"(over by {rise - arg_bytes}, allocator limit {slack}); temp "
+          f"estimate {counts['temp_size_in_bytes'] / 1e9:.2f} GB, args + "
+          f"temp {(arg_bytes + counts['temp_size_in_bytes']) / 1e9:.2f} GB "
+          f"beside 6g's max_memory_allocated {peak_gb:.2f} GB", flush=True)
+    if real != want:
+        diff = sorted(set(real.items()) ^ set(want.items()), key=str)[:8]
+        fail(f"dryrun: argument leaves differ from launch.train's state "
+             f"(path, shape, dtype): {diff}")
+    if real_bytes != arg_bytes:
+        fail(f"dryrun: argument bytes {arg_bytes} vs the state's "
+             f"{real_bytes}")
+    if not 0 <= rise - arg_bytes <= slack:
+        fail(f"dryrun: argument bytes {arg_bytes} vs the card's rise "
+             f"{rise}: {rise - arg_bytes} outside [0, {slack}]")
+
+    # ---- roofline shares of the measured steps ------------------------------
+    def ideal(cell, arg_b, flops, n_params) -> float:
+        return roofline.Roofline(
+            TOOLING_ARCH, cell.name, flops / mesh.PEAK_FLOPS_BF16, 0.0, 0.0,
+            roofline.model_flops(cfg, cell, n_params, 1), flops,
+            arg_b).ideal_s
+
+    train_ideal = ideal(train_cell, arg_bytes, counts["flops"],
+                        count_params(cfg))
+    train_s = record["training"][TOOLING_ARCH]["step_ms"] / 1e3
+    decode_cell = ShapeCell("serve_decode", "decode", SERVE_MAX_LEN,
+                            int(SERVE_ARGS[SERVE_ARGS.index("--max-batch")
+                                           + 1]))
+    dstep, dargs, dspecs = dryrun.build_cell(cfg, decode_cell, one_card, "tp")
+    decode_args = dryrun.argument_bytes(dargs, dspecs, one_card)
+    decode_ideal = ideal(decode_cell, decode_args, 0.0,
+                         count_params(cfg, active=True))
+    decode_s = record["serving"]["decode_step_ms"] / 1e3
+    out["shares"] = {
+        "train": {"ideal_ms": train_ideal * 1e3, "step_ms": train_s * 1e3,
+                  "share": train_ideal / train_s},
+        "decode": {"ideal_ms": decode_ideal * 1e3, "arg_bytes": decode_args,
+                   "step_ms": decode_s * 1e3,
+                   "share": decode_ideal / decode_s}}
+    for key, what in (("train", f"6g train step, batch {TRAIN_BATCH}x128, "
+                                f"median"),
+                      ("decode", f"step 6 decode step, batch "
+                                 f"{decode_cell.global_batch}, cache "
+                                 f"{SERVE_MAX_LEN}, mean")):
+        v = out["shares"][key]
+        print(f"roofline share {TOOLING_ARCH} {what}: ideal "
+              f"{v['ideal_ms']:.3f} ms over measured {v['step_ms']:.3f} ms "
+              f"= {v['share']:.4f} ({card})", flush=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"tooling: {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2654,6 +2820,9 @@ def main() -> int:
     record["card_twins"], twin_launches = run_card_twins(all_kernels)
     for name, count in twin_launches.items():
         launches[name] += count
+
+    # ---- step 7, the launch tooling on the card -----------------------------
+    record["tooling"] = run_tooling(record, card)
 
     # ---- the kernels line ---------------------------------------------------
     src = "src/repro_torch/kernels/csrc/"

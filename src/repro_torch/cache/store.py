@@ -119,13 +119,17 @@ class ResultCache:
 
     def vector_sig(self, config) -> dict:
         """The bit-affecting slice of a ``repro_torch.vector.VectorConfig``:
-        the slot width, the sample budget, soft mode (with its constants)
-        and the device the cells run on.  ``max_slot_elems`` and
+        the slot width, the sample budget, the resolved backend, soft
+        mode (with its constants) and where the cells run: the device
+        on the torch backend, ``"host"`` on the NumPy backend (f64 on
+        the host, whatever ``device`` says).  ``max_slot_elems`` and
         ``pipeline`` stay out: they are proven not to change bits."""
         from repro_torch.vector.runtime import SOFT_BAND_FRAC, SOFT_TAU
+        backend = config.resolve_backend()
         sig = {"dt": config.dt, "samples": config.samples,
-               "soft": bool(config.soft),
-               "device": device_sig(config.device)}
+               "backend": backend, "soft": bool(config.soft),
+               "device": ("host" if backend == "numpy"
+                          else device_sig(config.device))}
         if config.soft:
             sig["tau"] = SOFT_TAU
             sig["band_frac"] = SOFT_BAND_FRAC

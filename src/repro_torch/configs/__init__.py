@@ -1,2 +1,2 @@
-"""Architecture configs of the port (copies of ``repro.configs``, without
-the TPU dry-run's shape cells)."""
+"""Architecture configs of the port (copies of ``repro.configs``, with the
+reference's shape cells)."""

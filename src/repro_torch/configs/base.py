@@ -7,8 +7,10 @@ Every architecture of the JAX package is registered: the dense
 the Mamba-2 ``mamba2-1.3b``, the MoE ``deepseek-moe-16b`` and
 ``mixtral-8x22b``, the hybrid ``jamba-1.5-large-398b``, the
 encoder-decoder ``whisper-small`` and the patch-frontend
-``llava-next-mistral-7b``; any other name raises ``KeyError``.  The shape
-cells of the TPU dry-run are not part of this package.
+``llava-next-mistral-7b``; any other name raises ``KeyError``.  The
+shape cells (``ShapeCell``, ``ALL_SHAPES``, ``shapes_for``) are the
+reference's: the dry-run (``launch.dryrun``) and the roofline
+(``launch.roofline``) run every arch at each of them.
 """
 from __future__ import annotations
 
@@ -108,6 +110,15 @@ class ArchConfig:
                              f"divide into pattern groups of {p}")
         return self.num_layers // p
 
+    @property
+    def attn_free(self) -> bool:
+        return all(k == MAMBA for k in self.resolved_pattern)
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embeddings + blocks), for 6ND."""
+        from repro_torch.models.registry import count_params
+        return count_params(self)
+
     def smoke(self) -> "ArchConfig":
         """Reduced same-family config for CPU smoke tests."""
         p = self.resolved_pattern
@@ -140,6 +151,32 @@ class ArchConfig:
             moe_positions=moe_pos,
             mamba=mamba,
         )
+
+
+# ---------------------------------------------------------------------------
+# Shape cells: every LM arch pairs with the first three; long_500k only
+# with a sub-quadratic one.
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+TRAIN_4K = ShapeCell("train_4k", "train", 4096, 256)
+PREFILL_32K = ShapeCell("prefill_32k", "prefill", 32_768, 32)
+DECODE_32K = ShapeCell("decode_32k", "decode", 32_768, 128)
+LONG_500K = ShapeCell("long_500k", "decode", 524_288, 1)
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+
+
+def shapes_for(cfg: ArchConfig) -> Sequence[ShapeCell]:
+    out = [TRAIN_4K, PREFILL_32K, DECODE_32K]
+    if cfg.sub_quadratic:
+        out.append(LONG_500K)
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------
@@ -180,3 +217,8 @@ def get_config(name: str) -> ArchConfig:
         raise KeyError(f"unknown arch {name!r} (registered: "
                        f"{', '.join(sorted(_REGISTRY))})") from None
 
+
+def list_configs() -> list[str]:
+    """Every registered arch name, sorted."""
+    _populate()
+    return sorted(_REGISTRY)

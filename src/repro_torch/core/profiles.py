@@ -16,7 +16,9 @@ Trimmed copy of ``repro.core.profiles``:
 
 ``BatchedService.from_arch`` calibrates the batched service from a
 registered architecture's parameter count on the H100's datasheet
-figures (``repro_torch.launch.mesh``).
+figures (``repro_torch.launch.mesh``), and ``arch_profile`` gives an
+architecture's scalar serving profile from the roofline's decode step
+(``launch.roofline.decode_step_time_fallback``: one card).
 """
 from __future__ import annotations
 
@@ -362,3 +364,20 @@ class BatchScheduler:
         self.active = []
         self.op = None
         return keys
+
+
+def arch_profile(arch: str, *, tokens_out: int = 64,
+                 step_time: float | None = None,
+                 batch: int = 8) -> LogNormalProfile:
+    """Serving profile for a registered architecture.
+
+    ``step_time`` = per-decode-step seconds for the whole batch (by
+    default ``launch.roofline.decode_step_time_fallback``: the active
+    weights read once at one H100's HBM rate).  A request's demand ~
+    tokens_out x step_time / batch with log-normal spread (sigma 0.6)
+    over output lengths."""
+    if step_time is None:
+        from repro_torch.launch.roofline import decode_step_time_fallback
+        step_time = decode_step_time_fallback(arch)
+    median = tokens_out * step_time / batch
+    return LogNormalProfile(f"arch:{arch}", median, 0.6)

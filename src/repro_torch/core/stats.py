@@ -1,8 +1,7 @@
 """Latency statistics: percentile recorder + Welch's t-test (no scipy).
 
 Copy of ``repro.core.stats`` without the reference's order-statistic
-plan memo (it never changes a result) and without the batched
-partition helper its NumPy vector backend uses.
+plan memo (it never changes a result).
 
 The recorder groups completed-request latencies per (client, interval)
 and produces the paper's metrics: mean / p95 / p99 per interval and per
@@ -285,6 +284,22 @@ def quantiles_partition(xs, qs) -> np.ndarray:
     out = a + (b - a) * t
     flip = t >= 0.5
     out[flip] = b[flip] - (b[flip] - a[flip]) * (1.0 - t[flip])
+    return out
+
+
+def quantiles_partition_batched(mat: np.ndarray, counts,
+                                qs) -> np.ndarray:
+    """Row-wise ``quantiles_partition`` over a padded ``[C, K]`` matrix
+    (row ``i`` holds ``counts[i]`` valid samples, padding beyond); NaN
+    rows where the count is 0.  The same partition and lerp per row, so
+    the output is bit-for-bit the scalar path's (the NumPy vector
+    backend's quantile head)."""
+    counts = np.asarray(counts)
+    qs = tuple(float(q) for q in qs)
+    out = np.full((counts.size, len(qs)), float("nan"))
+    for i, n in enumerate(counts):
+        if n:
+            out[i] = quantiles_partition(mat[i, :int(n)], qs)
     return out
 
 

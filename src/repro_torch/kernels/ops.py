@@ -1,7 +1,8 @@
 """Kernel dispatch by the device of the tensors.
 
 A CUDA tensor launches the hand-written kernel (or the wrapper raises);
-a CPU tensor takes the kernel's plain PyTorch version in ``ref``.
+a CPU tensor takes the kernel's plain PyTorch version in ``ref``, and so
+does a ``meta`` tensor (the dry-run's shapes, ``launch.dryrun``).
 There is no switch that sends a CUDA tensor down the plain path, and no
 fallback when a build or launch fails.  The one routing rule besides
 the device: scan consts that carry a soft-mode ``tau`` run the plain
@@ -29,9 +30,13 @@ from repro_torch.kernels import ssd_scan as _ssd
 
 
 def _on_cuda(x: torch.Tensor) -> bool:
+    """True for a CUDA tensor; False for a CPU tensor and for a ``meta``
+    tensor (shapes only), which take the plain version: the dry-run
+    (``launch.dryrun``) asks for ``meta`` by name, as the reference's
+    dry-run asks for ``impl="ref"``.  Any other device raises."""
     if x.is_cuda:
         return True
-    if x.device.type != "cpu":
+    if x.device.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {x.device}")
     return False
 

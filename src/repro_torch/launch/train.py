@@ -13,9 +13,9 @@ Twin of ``repro.launch.train``:
 --resume restores params/opt/data state from the latest checkpoint (the
 restart path a cluster scheduler takes after preemption).  Runs on the
 card unless ``--device cpu`` (the kernels' plain versions); weights are
-drawn from ``--seed`` on that device.  One device only: the reference's
-mesh (``distributed.sharding``: ``mesh_context``, ``strategy_rules``,
-``tree_shardings``) is not ported (ROADMAP Queue A item 8).  An
+drawn from ``--seed`` on that device.  One device only: the sharding
+rules are ported (``distributed.sharding``), sharded execution is not
+(ROADMAP Queue A item 9).  An
 encoder-decoder model (whisper-small) is refused: the synthetic batch
 has no encoder input (``frames``), where the reference fails too.
 

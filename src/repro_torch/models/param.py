@@ -2,9 +2,11 @@
 
 Copy of ``repro.models.param`` in PyTorch.  A model is a nested dict of
 ``Spec`` leaves (shape, dtype, logical axes, initializer); from it come
-the parameters themselves (``init_tree``), counts and sizes.  The
-logical axes are kept for the reader and for a later sharded port; the
-port runs on one card and never reads them.
+the parameters themselves (``init_tree``), counts and sizes, the
+abstract tree of the dry-run (``abstract_tree``: tensors on the ``meta``
+device, PyTorch's counterpart of ``jax.ShapeDtypeStruct``, so nothing is
+allocated) and the logical axes the sharding rules read
+(``axes_tree``; ``distributed.sharding``).
 
 ``from_numpy`` carries a parameter tree across from the JAX package
 (its arrays as NumPy, the same key paths), so a test can run both on
@@ -63,6 +65,19 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def abstract_tree(tree) -> dict:
+    """Each ``Spec`` -> an empty tensor of its shape and dtype on the
+    ``meta`` device (no storage)."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device="meta"), tree)
+
+
+def axes_tree(tree) -> dict:
+    """Each ``Spec`` -> its logical-axes tuple (a leaf: ``tree_map`` and
+    ``leaves`` walk dicts only, so no wrapper is needed)."""
+    return tree_map(lambda s: s.axes, tree)
+
+
 def init_tree(tree, generator: torch.Generator, device=None) -> dict:
     """Materialise a spec tree: normal leaves draw ``N(0, 1)`` in f32 from
     ``generator`` (on the generator's own device, leaf by leaf in key
@@ -118,3 +133,8 @@ def stack_specs(tree, n: int, axis_name: str = "layer"):
 def count_params_tree(tree) -> int:
     return int(sum(math.prod(s.shape) for _, s in leaves(tree)))
 
+
+def tree_bytes(tree) -> int:
+    """Bytes of every leaf of a spec tree at its dtype."""
+    return int(sum(math.prod(s.shape) * s.dtype.itemsize
+                   for _, s in leaves(tree)))

@@ -86,6 +86,17 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     return P.init_tree(model_specs(cfg), generator, device)
 
 
+def abstract_params(cfg: ArchConfig) -> dict:
+    """The parameter tree as ``meta`` tensors (the dry-run's: shapes and
+    dtypes, no storage)."""
+    return P.abstract_tree(model_specs(cfg))
+
+
+def param_axes(cfg: ArchConfig) -> dict:
+    """The parameter tree's logical axes (a tuple of names per leaf)."""
+    return P.axes_tree(model_specs(cfg))
+
+
 def count_params(cfg: ArchConfig, active: bool = False) -> int:
     """Parameter count of ``model_specs`` (tied embeddings counted once),
     as the JAX package's; ``active=True`` counts those one token reads:

@@ -26,7 +26,8 @@ admission control and the control loop run on it as on ``sim``.  The
 vector and model runs go to the CUDA card; ``--device cpu`` runs the
 kernels' plain PyTorch versions on the CPU instead.  The report's first line
 names the backend and where it ran (``device=host`` for ``sim`` and
-the stub engines).  ``--cache`` (or ``--cache-dir DIR``) serves the
+the stub engines, and for ``--vector-backend numpy``, the reference's
+f64 NumPy backend).  ``--cache`` (or ``--cache-dir DIR``) serves the
 vector cell from the port's result cache (``repro_torch.cache``, default
 ``artifacts/cache_torch``) when it holds it, and prints a ``cache[...]``
 stats line after the report.
@@ -92,6 +93,11 @@ def main(argv=None) -> int:
                     help="where the vector runtime or the model runs "
                          "(cpu = the kernels' plain PyTorch versions); "
                          "the sim backend always runs on the host")
+    ap.add_argument("--vector-backend", default="auto",
+                    choices=["auto", "torch", "numpy"],
+                    help="vector backend: array backend (auto = torch, on "
+                         "--device; numpy = the reference's f64 host "
+                         "backend, which never touches the card)")
     ap.add_argument("--duration", type=float, default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--app", default=None)
@@ -132,7 +138,8 @@ def main(argv=None) -> int:
 
     # the simulator and the stub engines run on the host
     on_host = args.backend == "sim" or (args.backend == "engine"
-                                        and not args.arch)
+                                        and not args.arch) or (
+        args.backend == "vector" and args.vector_backend == "numpy")
     device = "host" if on_host else args.device
     cache = cache_from_args(args)
     if args.backend == "sim":
@@ -140,7 +147,9 @@ def main(argv=None) -> int:
     elif args.backend == "vector":
         from repro_torch.vector import VectorConfig
         rt = run_scenario(sc, args.backend,
-                          vector_config=VectorConfig(device=args.device),
+                          vector_config=VectorConfig(
+                              device=args.device,
+                              backend=args.vector_backend),
                           cache=cache)
     elif args.arch:
         from repro_torch.scenarios.backends import \

@@ -22,7 +22,8 @@ Where the port differs from ``python -m repro.sweep``: ``--runtime``
 defaults to ``vector`` (the reference's default is ``sim``), and the
 vector grid runs on the CUDA card unless ``--device cpu`` asks for the
 kernels' plain PyTorch versions on the CPU (in place of the reference's
-``--vector-impl``/``--vector-backend``/``--vector-devices``).  A
+``--vector-impl``/``--vector-devices``); ``--vector-backend numpy`` runs
+the reference's f64 NumPy backend on the host instead.  A
 ``--file`` declaration, and ``--smoke``, still mean ``sim`` where they
 name no runtime, as in the reference.  An ``optimize`` declaration runs
 the gradient planner on ``--device``.  ``--cache`` (or ``--cache-dir
@@ -201,6 +202,11 @@ def main(argv=None) -> int:
                     help="where the vector grid runs (cpu = the kernels' "
                          "plain PyTorch versions); sim and engine tasks "
                          "always run on the host")
+    ap.add_argument("--vector-backend", default="auto",
+                    choices=["auto", "torch", "numpy"],
+                    help="vector grid: array backend (auto = torch, on "
+                         "--device; numpy = the reference's f64 host "
+                         "backend)")
     ap.add_argument("--out", default=OUT_DEFAULT,
                     help=f"artifact directory (default {OUT_DEFAULT})")
     ap.add_argument("--quiet", action="store_true",
@@ -252,7 +258,8 @@ def main(argv=None) -> int:
     cache = cache_from_args(args)
     frame = run_sweep(sweep, executor=args.executor, workers=args.workers,
                       progress=None if args.quiet else _progress,
-                      vector_config=VectorConfig(device=args.device),
+                      vector_config=VectorConfig(
+                          device=args.device, backend=args.vector_backend),
                       cache=cache)
     json_path = os.path.join(args.out, f"{frame.name}.json")
     csv_path = os.path.join(args.out, f"{frame.name}.csv")

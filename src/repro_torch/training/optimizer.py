@@ -13,8 +13,8 @@ by leaf and slice by slice (``UPDATE_SLICE`` elements at a time), under
 same bits as whole leaves, and the f32 temporaries stay a few slices
 big where phi3-mini-3.8b's stacked MLP leaves hold 805 M values each.
 The JAX package returns new trees instead (its jitted step donates the
-old ones).  ``abstract_opt_state`` (shapes for the dry-run) is not
-ported: the port has no dry-run (ROADMAP Queue A item 8).
+old ones).  ``abstract_opt_state`` gives the state as ``meta`` tensors
+for the dry-run (``launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.models.param import leaves
+from repro_torch.models.param import leaves, tree_map
 
 F32 = torch.float32
 
@@ -65,6 +65,12 @@ def init_opt_state(params: dict, cfg: OptConfig) -> dict:
     return {"m": _zeros_like_tree(params, getattr(torch, cfg.m_dtype)),
             "v": _zeros_like_tree(params, getattr(torch, cfg.v_dtype)),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def abstract_opt_state(abstract_params: dict, cfg: OptConfig) -> dict:
+    """``init_opt_state`` on ``meta`` parameters: the same builder, so the
+    dry-run's state is the one training allocates; nothing is allocated."""
+    return init_opt_state(abstract_params, cfg)
 
 
 def lr_at(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:

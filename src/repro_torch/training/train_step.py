@@ -13,8 +13,8 @@ gradient lands in its stacked leaf.  The step updates the parameters
 and the optimizer's moments in place (``optimizer.adamw_update``) and
 returns them, where the reference's jitted step donates the old trees.
 The reference's ``cost_mode`` (one chunk for the dry-run's cost
-analysis) is not ported: the port has no dry-run (ROADMAP Queue A item
-8).
+analysis) has no counterpart: the port's dry-run (``launch.dryrun``)
+runs this step on the ``meta`` device and counts every chunk.
 """
 from __future__ import annotations
 

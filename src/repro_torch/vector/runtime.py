@@ -32,6 +32,14 @@ them; ``fail_slot`` and the slot index int32) and outputs are widened to
 f64 on the host.  Each chunk's outputs come back in one device-to-host
 copy.  Cells group into geometric (T, S) shape buckets, and chunks are
 double-buffered: chunk k+1's scan runs while the host finishes chunk k.
+
+``VectorConfig.backend="numpy"`` is the reference's NumPy backend: the
+scan runs the reference's namespace-generic step math with ``np`` in
+f64 on the host (``_waterfill``, ``_scalar_step``, ``_batched_step``,
+``_scan_numpy``, verbatim copies) and the quantiles come from
+``core.stats.quantiles_partition_batched``, so its rows are the
+reference's ``backend="numpy"`` rows bit for bit.  It never initialises
+CUDA, whatever ``device`` says.
 """
 from __future__ import annotations
 
@@ -42,6 +50,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.stats import quantiles_partition_batched
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.vector import soft as _soft
@@ -62,6 +71,10 @@ SOFT_BAND_FRAC = 5e-4
 
 @dataclass
 class VectorConfig:
+    """How a grid runs.  ``backend="numpy"`` is the reference's NumPy
+    backend: f64 on the host, never initialising CUDA whatever
+    ``device`` says (so ``device="cpu"`` is not the port's only host
+    path: it runs the kernels' plain PyTorch versions in f32)."""
     dt: float = 0.005               # slot width (seconds)
     samples: int = 32768            # latency-sample budget per cell
     max_slot_elems: int = 64_000_000   # chunk cells when T*C*S exceeds this
@@ -74,6 +87,22 @@ class VectorConfig:
                                     # water-filling / Erlang-C / censoring
                                     # and the soft quantile head (the
                                     # plain step, on ``device``)
+    backend: str = "auto"           # auto | torch | numpy: "auto" means
+                                    # "torch" (the port has no optional
+                                    # import to probe, where the
+                                    # reference's "auto" probes for jax);
+                                    # "numpy" is the reference's f64 host
+                                    # backend and ignores ``device``
+
+    def resolve_backend(self) -> str:
+        """``"torch"`` or ``"numpy"``; any other name raises
+        ``ValueError`` (``"jax"`` included: the port has none)."""
+        if self.backend == "auto":
+            return "torch"
+        if self.backend not in ("torch", "numpy"):
+            raise ValueError(f"unknown vector backend {self.backend!r} "
+                             f"(use 'auto', 'torch' or 'numpy')")
+        return self.backend
 
 
 # ---------------------------------------------------------------------------
@@ -137,6 +166,173 @@ def _episode_age(rho: np.ndarray, t_idx: np.ndarray, dt: float,
     last_low = np.maximum.accumulate(np.where(rho < band, idx, -1.0),
                                      axis=0)
     return np.maximum(idx - last_low, 1.0) * dt
+
+
+# ---------------------------------------------------------------------------
+# The NumPy backend's scan step (the reference's namespace-generic math,
+# run with ``np`` in f64; soft mode refuses this backend, so the
+# reference's soft water-fill branch is left out)
+# ---------------------------------------------------------------------------
+def _waterfill(xp, U_eff, total):
+    """Distribute ``total`` [C] of work over the least-loaded lanes of
+    ``U_eff`` [C, S] (masked lanes carry ``_BIG``): fill to a common
+    level.  -> per-lane fill amounts [C, S].  Lane k proposes the level
+    reached if exactly the lanes at-or-below it share the work; the
+    level is the least proposal."""
+    mine = U_eff[..., :, None]                    # proposing lane k
+    other = U_eff[..., None, :]                   # every lane i
+    le = other <= mine
+    cnt = xp.sum(xp.where(le, 1.0, 0.0), axis=-1)
+    wsum = xp.sum(xp.where(le, other, 0.0), axis=-1)
+    level = (total[..., None] + wsum) / xp.maximum(cnt, 1.0)
+    L = xp.min(level, axis=-1, keepdims=True)
+    return xp.clip(L - U_eff, 0.0, None)
+
+
+def _scalar_step(xp, consts):
+    c = consts["c"]
+    fail_slot = consts["fail_slot"]
+    dt = consts["dt"]
+
+    def step(carry, xs):
+        U, Q, drops = carry
+        t, Nc, Wc, Nf, Wf, act, acc, spd = xs
+        # failure instant: the resident queue and in-flight work vanish
+        is_fail = (t == fail_slot)
+        drops = drops + xp.sum(xp.where(is_fail, Q, 0.0), axis=-1)
+        U = xp.where(is_fail, 0.0, U)
+        Q = xp.where(is_fail, 0.0, Q)
+        # request-routed work: water-fill the accepting servers
+        n_acc = xp.sum(acc, axis=-1)
+        ok = n_acc > 0
+        drops = drops + xp.where(ok, 0.0, Nf)
+        Wf = xp.where(ok, Wf, 0.0)
+        Nf = xp.where(ok, Nf, 0.0)
+        U_eff = xp.where(acc > 0, U, _BIG)
+        w_free = _waterfill(xp, U_eff, Wf)
+        share = w_free / xp.maximum(
+            xp.sum(w_free, axis=-1, keepdims=True), _EPS)
+        n_free = Nf[..., None] * share
+        W_arr = Wc + w_free
+        N_arr = Nc + n_free
+        # backlog wait an arrival inherits; request-routed arrivals land
+        # at the water-fill level (the least backlog any accepting
+        # server offers)
+        wait_U = U / xp.maximum(c * spd, _EPS)
+        wait_free = xp.min(xp.where(acc > 0, wait_U, _BIG), axis=-1)
+        # serve
+        cw = c * spd * act * dt
+        drained = xp.minimum(U + W_arr, cw)
+        wpr = (U + W_arr) / xp.maximum(Q + N_arr, _EPS)   # work per request
+        n_served = xp.minimum(Q + N_arr, drained / xp.maximum(wpr, _EPS))
+        U = U + W_arr - drained
+        Q = Q + N_arr - n_served
+        return (U, Q, drops), (wait_U, wait_free, n_served, drained, Q)
+    return step
+
+
+def _batched_step(xp, consts):
+    B = consts["c"]                      # batch slots
+    fail_slot = consts["fail_slot"]; dt = consts["dt"]
+    tm = consts["tm"]; tc = consts["tc"]
+    new_mean = consts["new_mean"]
+
+    def step(carry, xs):
+        P, T, L, drops = carry           # prefill s, tokens, requests
+        t, Nc, Wpc, Wtc, Nf, Wpf, Wtf, act, acc, spd = xs
+        is_fail = (t == fail_slot)
+        drops = drops + xp.sum(xp.where(is_fail, L, 0.0), axis=-1)
+        P = xp.where(is_fail, 0.0, P)
+        T = xp.where(is_fail, 0.0, T)
+        L = xp.where(is_fail, 0.0, L)
+        # free arrivals: water-fill by queue length (jsq over load())
+        n_acc = xp.sum(acc, axis=-1)
+        ok = n_acc > 0
+        drops = drops + xp.where(ok, 0.0, Nf)
+        Nf = xp.where(ok, Nf, 0.0)
+        L_eff = xp.where(acc > 0, L, _BIG)
+        n_free = _waterfill(xp, L_eff, Nf)
+        share = n_free / xp.maximum(
+            xp.sum(n_free, axis=-1, keepdims=True), _EPS)
+        Wp_arr = Wpc + Wpf[..., None] * share
+        Wt_arr = Wtc + Wtf[..., None] * share
+        N_arr = Nc + n_free
+        # roofline step law at the slot's occupancy
+        b = xp.clip(L, 1.0, B)
+        st = xp.maximum(tc * b, tm)
+        tok_rate = b / st
+        avail = act * spd * dt
+        p_served = xp.minimum(P + Wp_arr, avail)
+        rem = avail - p_served
+        tok_served = xp.minimum(T + Wt_arr, rem * tok_rate)
+        dec_used = tok_served / xp.maximum(tok_rate, _EPS)
+        busy_used = p_served + dec_used
+        n_served = xp.minimum(L + N_arr, tok_served / new_mean)
+        P = P + Wp_arr - p_served
+        T = T + Wt_arr - tok_served
+        L = L + N_arr - n_served
+        # admission wait: drain-time share ahead of a new arrival
+        D = (P + T * st / xp.maximum(b, 1.0)) / xp.maximum(spd, _EPS)
+        wait_adm = D * xp.clip((L - B) / xp.maximum(L, 1.0), 0.0, 1.0)
+        b_hat = xp.clip(L + 1.0, 1.0, B)
+        st_hat = xp.maximum(tc * b_hat, tm)
+        return (P, T, L, drops), (wait_adm, st_hat, N_arr, n_served,
+                                  busy_used, L, tok_served)
+    return step
+
+
+def _scan_numpy(step, carry, xs_seq, n_slots: int):
+    outs = None
+    for t in range(n_slots):
+        xs = tuple(x[t] for x in xs_seq)
+        carry, ys = step(carry, xs)
+        if outs is None:
+            outs = tuple(np.empty((n_slots,) + np.shape(y), dtype=float)
+                         for y in ys)
+        for buf, y in zip(outs, ys):
+            buf[t] = y
+    return carry, outs
+
+
+def _numpy_scan(progs: list, draws: list, batched: bool,
+                shape: tuple) -> tuple:
+    """One (family, shape) chunk's scan on the NumPy backend -> (carry,
+    outs) in f64, its inputs assembled as the reference assembles them
+    (f64 stacks, the integer slot index and fail slots)."""
+    C = len(progs)
+    T, S = shape
+
+    def stack(key: str) -> np.ndarray:
+        return np.stack([_pad(d[key], T, S) for d in draws], axis=1)
+
+    def stackp(attr: str) -> np.ndarray:
+        return np.stack([_pad(getattr(p, attr), T, S) for p in progs],
+                        axis=1)
+
+    act = stackp("active")
+    acc = stackp("accepting")
+    spd = stackp("speed")
+    c = np.stack([np.pad(p.workers, (0, S - p.n_servers)) for p in progs])
+    fail = np.stack([np.pad(p.fail_slot, (0, S - p.n_servers),
+                            constant_values=-1) for p in progs])
+    t_idx = np.arange(T, dtype=np.int64)
+    if not batched:
+        consts = {"c": c, "fail_slot": fail, "dt": progs[0].dt}
+        xs = (t_idx, stack("Nc"), stack("Wc"), stack("Nf"), stack("Wf"),
+              act, acc, spd)
+        carry = tuple(np.zeros((C, S)) for _ in range(2)) + (np.zeros(C),)
+        builder = _scalar_step
+    else:
+        tm = np.array([p.service.t_memory for p in progs])[:, None]
+        tc = np.array([p.service.t_compute_per_seq for p in progs])[:, None]
+        nm = np.array([p.new_mean for p in progs])[:, None]
+        consts = {"c": c, "fail_slot": fail, "dt": progs[0].dt, "tm": tm,
+                  "tc": tc, "new_mean": nm}
+        xs = (t_idx, stack("Nc"), stack("Wpc"), stack("Wtc"), stack("Nf"),
+              stack("Wpf"), stack("Wtf"), act, acc, spd)
+        carry = tuple(np.zeros((C, S)) for _ in range(3)) + (np.zeros(C),)
+        builder = _batched_step
+    return _scan_numpy(builder(np, consts), carry, xs, T)
 
 
 # ---------------------------------------------------------------------------
@@ -232,8 +428,15 @@ def run_cells(programs: Sequence[VectorProgram],
     Chunks are double-buffered when ``cfg.pipeline``: chunk k+1's scan
     is launched before chunk k's host finishing runs.  Both orders give
     identical rows: a cell's numbers depend only on its own program,
-    seed and config."""
+    seed and config.  On the NumPy backend (``cfg.backend="numpy"``)
+    every chunk runs on the host in f64 and ``cfg.device`` is not read;
+    soft mode there raises ``RuntimeError``, as the reference's does."""
     cfg = config or VectorConfig()
+    backend = cfg.resolve_backend()
+    if cfg.soft and backend == "numpy":
+        raise RuntimeError("VectorConfig.soft=True needs the torch "
+                           "backend: the soft quantile head runs through "
+                           "torch (use backend='torch' or 'auto')")
     results: list[Optional[VectorResult]] = [None] * len(programs)
     keys: list[Optional[str]] = [None] * len(programs)
     if cache is not None:
@@ -250,7 +453,7 @@ def run_cells(programs: Sequence[VectorProgram],
     if not cold:
         return results  # type: ignore[return-value]
 
-    device = resolve_device(cfg.device)
+    device = None if backend == "numpy" else resolve_device(cfg.device)
     cold_progs = [programs[i] for i in cold]
     chunks = []                     # (batched, shape, indices into cold)
     for batched, shape, idxs in _plan_groups(cold_progs):
@@ -345,25 +548,31 @@ def _launch_family(progs: list, seeds: list, batched: bool,
     dt = progs[0].dt
     rngs = [_cell_rng(s, st) for s, st in seeds]
     draws = [_draw_cell(p, r) for p, r in zip(progs, rngs)]
-    consts, carry, xs = scan_inputs(progs, draws, batched, shape, device)
-    if cfg.soft:
-        consts["tau"] = SOFT_TAU
-    scan = ops.batched_scan if batched else ops.scalar_scan
-    out_carry, ys = scan(consts, carry, xs)
-    # ONE device->host copy for the whole chunk
-    parts = list(ys) + list(out_carry)
-    flat = torch.cat([p.reshape(-1) for p in parts])
-    if device.type == "cuda":
-        host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
-        host.copy_(flat, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-    else:
-        host, done = flat, None
     state = {"progs": progs, "rngs": rngs, "draws": draws,
-             "batched": batched, "cfg": cfg, "C": C, "device": device,
-             "host": host, "done": done,
-             "shapes": [tuple(p.shape) for p in parts], "n_ys": len(ys)}
+             "batched": batched, "cfg": cfg, "C": C, "device": device}
+    if device is None:                  # the NumPy backend
+        state["scan"] = _numpy_scan(progs, draws, batched, shape)
+    else:
+        consts, carry, xs = scan_inputs(progs, draws, batched, shape,
+                                        device)
+        if cfg.soft:
+            consts["tau"] = SOFT_TAU
+        scan = ops.batched_scan if batched else ops.scalar_scan
+        out_carry, ys = scan(consts, carry, xs)
+        # ONE device->host copy for the whole chunk
+        parts = list(ys) + list(out_carry)
+        flat = torch.cat([p.reshape(-1) for p in parts])
+        if device.type == "cuda":
+            host = torch.empty(flat.shape, dtype=flat.dtype,
+                               pin_memory=True)
+            host.copy_(flat, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        else:
+            host, done = flat, None
+        state.update(host=host, done=done,
+                     shapes=[tuple(p.shape) for p in parts],
+                     n_ys=len(ys))
 
     # ---- host-side analytic aux (overlaps the launched scan) -----------
     act = np.stack([_pad(p.active, T, S) for p in progs], axis=1)
@@ -482,7 +691,7 @@ def _finish_family(state: dict) -> list[VectorResult]:
     results (sampling, censoring, fused-grid percentiles)."""
     progs, rngs, draws = state["progs"], state["rngs"], state["draws"]
     batched, cfg, aux = state["batched"], state["cfg"], state["aux"]
-    carry, outs = _fetch(state)
+    carry, outs = state["scan"] if "scan" in state else _fetch(state)
     cells = [_sample_cell(progs[i], rngs[i], i, batched, carry, outs, aux,
                           draws[i], cfg)
              for i in range(state["C"])]
@@ -490,6 +699,8 @@ def _finish_family(state: dict) -> list[VectorResult]:
         quants = _soft_grid_quantiles([cell["lat_all"] for cell in cells],
                                       [cell["w_all"] for cell in cells],
                                       state["device"])
+    elif state["device"] is None:
+        quants = _numpy_quantiles([cell["lat"] for cell in cells])
     else:
         quants = _grid_quantiles([cell["lat"] for cell in cells],
                                  state["device"])
@@ -627,6 +838,18 @@ def _grid_quantiles(lats: list, device: torch.device) -> np.ndarray:
     out = ops.fused_quantiles(torch.from_numpy(mat).to(device),
                               torch.from_numpy(counts).to(device))
     return out.cpu().numpy().astype(np.float64)
+
+
+def _numpy_quantiles(lats: list) -> np.ndarray:
+    """The NumPy backend's head, the reference's: one partition per row
+    of a zero-padded [C, K] f64 matrix -> [C, 3] f64 (NaN rows where a
+    cell has no samples)."""
+    counts = np.array([lat.size for lat in lats], np.int64)
+    mat = np.zeros((len(lats), max(int(counts.max()) if len(lats) else 0,
+                                   1)))
+    for i, lat in enumerate(lats):
+        mat[i, :lat.size] = lat
+    return quantiles_partition_batched(mat, counts, (50.0, 95.0, 99.0))
 
 
 def _soft_grid_quantiles(lats: list, weights: list,

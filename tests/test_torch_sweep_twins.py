@@ -269,17 +269,24 @@ def _imported_roots(path: str) -> set:
 
 
 def test_twins_and_chip_smoke_import_neither_jax_nor_repro():
-    """Imported, the twins, the training modules and ``chip_smoke.py``
-    load none of ``FORBIDDEN``; and no import statement anywhere in the
+    """Imported, the twins, the training modules, the launch and
+    distribution tooling, the NumPy vector backend's modules and
+    ``chip_smoke.py`` load none of ``FORBIDDEN``; and no import
+    statement anywhere in the
     port, the twins, the example twins (scripts: read, not run) or
     ``chip_smoke.py`` names one."""
     twins = FIGURES + ["fig_batching", "bench_vector", "bench_plan",
                        "bench_cache", "bench_control", "bench_sweep",
                        "bench_simulator", "_seed_sim", "engine_serving",
-                       "run", "common", "_record"]
+                       "roofline_table", "run", "common", "_record"]
     modules = ["repro_torch.training.data", "repro_torch.training.optimizer",
                "repro_torch.training.train_step",
-               "repro_torch.checkpoint.store", "repro_torch.launch.train"]
+               "repro_torch.checkpoint.store", "repro_torch.launch.train",
+               "repro_torch.launch.mesh", "repro_torch.launch.specs",
+               "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
+               "repro_torch.launch.perf", "repro_torch.launch.render",
+               "repro_torch.distributed.sharding",
+               "repro_torch.core.profiles", "repro_torch.vector.runtime"]
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
