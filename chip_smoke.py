@@ -173,6 +173,20 @@ trains phi3-mini-3.8b and mamba2-1.3b at full width and depth:
    6g's peak; and
    the roofline's ``ideal_s`` at 6g's train step and step 6's phi3
    decode step over the measured steps (the roofline shares);
+7b. runs the port's static analysis and then what its check rejects
+   (``run_analysis``): ``python -m repro_torch.analysis --strict --json
+   src/repro_torch`` in a subprocess (0 errors, 0 warnings; the
+   suppressed count printed); ``check_scenario(sc, backend="vector")``
+   for every registered scenario, which must reject exactly
+   ``ANALYSIS_REJECTED`` (``churn-storm``, ``retry-storm``), each with a
+   ``capability`` error; each of those through ``run_scenario(sc,
+   "vector")`` on the card (one cell, rep 0), whose ``unsupported``
+   kinds must be exactly the features check named
+   (``skipped_kinds``), with one ``scalar_scan`` and one
+   ``fused_quantiles`` launch a run and finite rows; the programs of the
+   check-passed scenarios that steps 4 and 4b ran skip nothing; a
+   ``legacy_mode`` declaration is rejected by check and refused by the
+   compiler; the phase must end within ``ANALYSIS_BUDGET_S``;
 8. times each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, with CUDA events (median of
    repeated runs), and fails where a kernel's time reads under its
@@ -2555,6 +2569,141 @@ def run_tooling(record: dict, card: str) -> dict:
     return out
 
 
+#: the registered scenarios that ``check`` rejects on ``vector``
+ANALYSIS_REJECTED = {"churn-storm", "retry-storm"}
+#: step 7b's budget: one lint subprocess and two one-cell grids
+ANALYSIS_BUDGET_S = 15.0
+
+
+def run_analysis(card: str, grids, chaos, vector_kernels) -> tuple:
+    """Step 7b: the port's static analysis, then the scenarios its check
+    rejects on ``vector`` run on the card.  -> (record, launches)."""
+    import os
+
+    from repro_torch.analysis.check import (check_scenario, has_errors,
+                                            skipped_kinds, unsupported_on)
+    from repro_torch.core.legacy import legacy_experiment
+    from repro_torch.core.runtime import run_scenario
+    from repro_torch.scenarios import get, names
+    from repro_torch.vector.compile import (VectorCompileError,
+                                            compile_experiment)
+    t_phase = time.perf_counter()
+    out = {}
+
+    # (a) the lint over the port's tree, strict, as a user runs it
+    t0 = time.perf_counter()
+    lint = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--strict", "--json",
+         "src/repro_torch"], cwd=ROOT, capture_output=True, text=True,
+        timeout=120, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    if lint.returncode != 0:
+        fail(f"analysis lint --strict: rc {lint.returncode}\n"
+             f"{lint.stdout[-2000:]}{lint.stderr[-2000:]}")
+    summary = json.loads(lint.stdout)["summary"]
+    if summary["errors"] or summary["warnings"]:
+        fail(f"analysis lint --strict: {summary}")
+    out["lint"] = dict(summary, s=time.perf_counter() - t0)
+    print(f"analysis lint src/repro_torch --strict: {summary['errors']} "
+          f"errors, {summary['warnings']} warnings, {summary['suppressed']} "
+          f"suppressed ({out['lint']['s']:.2f} s)", flush=True)
+
+    # (b) check on the vector backend: exactly the expected rejections
+    features, passed = {}, set()
+    for name in names():
+        found = check_scenario(get(name), backend="vector")
+        if not has_errors(found):
+            passed.add(name)
+            continue
+        if not any(f.rule == "capability" and f.severity == "error"
+                   for f in found):
+            fail(f"check {name} on vector: errors without a capability "
+                 f"error: {[f.format() for f in found]}")
+        features[name] = sorted(f for f, _ in unsupported_on(
+            get(name).compile(), "vector"))
+    if set(features) != ANALYSIS_REJECTED:
+        fail(f"check on vector rejects {sorted(features)}, expected "
+             f"{sorted(ANALYSIS_REJECTED)}")
+    out["check_rejected"] = features
+    print(f"analysis check --backend vector: rejects {features}", flush=True)
+
+    # (c) each rejected scenario on the card: the runtime skips exactly
+    # what check named, through one scan and one quantile launch
+    out["runs"], launches = {}, {k.__name__: 0 for k in vector_kernels}
+    for name in sorted(features):
+        for k in vector_kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rt = run_scenario(get(name), "vector")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = {k.__name__: k.launches for k in vector_kernels}
+        skipped = sorted({i.kind for i in rt.unsupported})
+        want = sorted(skipped_kinds(features[name]))
+        if skipped != want:
+            fail(f"{name} on the card skips {skipped}; check named "
+                 f"{features[name]} (kinds {want})")
+        if n["scalar_scan"] != 1 or n["fused_quantiles"] != 1 \
+                or n["batched_scan"] != 0:
+            fail(f"{name} on the card: launches {n}, expected one "
+                 f"scalar_scan and one fused_quantiles")
+        r = rt.result
+        row = (r.mean, r.p50, r.p95, r.p99)
+        if r.n <= 0 or not all(math.isfinite(v) for v in row) or \
+                not all(np.isfinite(r.n_ivl)):
+            fail(f"{name} on the card: n={r.n} row {row} not finite")
+        for key, count in n.items():
+            launches[key] += count
+        prog = rt.program
+        out["runs"][name] = {"skipped": skipped, "launches": n,
+                             "slots": prog.n_slots,
+                             "servers": int(prog.speed.shape[1]),
+                             "cells": 1, "wall_s": wall, "n": r.n,
+                             "p99_ms": r.p99 * 1e3}
+        print(f"analysis run {name} (vector, card): 1 cell, T "
+              f"{prog.n_slots} x S {prog.speed.shape[1]}, {wall:.3f} s, "
+              f"skipped {skipped}, launches {n}, n={r.n}, p99 "
+              f"{r.p99 * 1e3:.2f} ms ({card})", flush=True)
+
+    # the scenarios check passes that steps 4 and 4b ran on the card:
+    # every program of their grids skipped nothing
+    ran = {}
+    for name, progs, _ in grids + chaos:
+        if name in passed:
+            bad = [p.unsupported for p in progs if p.unsupported]
+            if bad:
+                fail(f"{name}: check passed it on vector, yet its card "
+                     f"grid skipped {bad[0]}")
+            ran[name] = len(progs)
+    out["passed_ran_clean"] = ran
+    print(f"analysis: check-passed grids run on the card skip nothing: "
+          f"{ran}", flush=True)
+
+    # (d) a legacy-mode declaration: rejected by check, refused by the
+    # compiler
+    legacy = legacy_experiment(2, 50.0, requests_per_client=20,
+                               duration=5.0)
+    found = check_scenario(legacy, backend="vector")
+    if not has_errors(found) or "legacy_mode" not in found[0].message:
+        fail(f"check passed a legacy_mode declaration on vector: "
+             f"{[f.format() for f in found]}")
+    try:
+        compile_experiment(legacy)
+    except VectorCompileError as e:
+        out["legacy"] = str(e)
+    else:
+        fail("compile_experiment accepted a legacy_mode declaration")
+    print(f"analysis legacy_mode: check rejects it on vector, the compiler "
+          f"refuses it ({out['legacy']})", flush=True)
+
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"analysis: {out['wall_s']:.2f} s ({card})", flush=True)
+    if out["wall_s"] > ANALYSIS_BUDGET_S:
+        fail(f"analysis phase took {out['wall_s']:.1f} s, over its "
+             f"{ANALYSIS_BUDGET_S:.0f} s budget")
+    return out, launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2823,6 +2972,12 @@ def main() -> int:
 
     # ---- step 7, the launch tooling on the card -----------------------------
     record["tooling"] = run_tooling(record, card)
+
+    # ---- step 7b, static analysis, then check's rejections on the card ----
+    record["analysis"], analysis_launches = run_analysis(
+        card, grids, chaos, vector_kernels)
+    for name, count in analysis_launches.items():
+        launches[name] += count
 
     # ---- the kernels line ---------------------------------------------------
     src = "src/repro_torch/kernels/csrc/"

@@ -51,6 +51,10 @@ SALT_SUFFIXES = (".py", ".cu", ".cuh", ".h")
 #: the package root whose sources the salt digests
 PACKAGE_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+#: top-level packages left out of the salt, as the reference leaves them:
+#: ``analysis`` (static lint and checks) never decides a cell's bits
+SALT_EXCLUDE = ("analysis",)
+
 
 class Unfingerprintable(TypeError):
     """The object has no canonical content form (lambda, closure,
@@ -164,13 +168,14 @@ def fingerprint(obj) -> str:
 def tree_digest(root: str) -> str:
     """Digest of the salted sources under ``root`` (+ format version):
     every ``SALT_SUFFIXES`` file, by relative path and content, in a
-    fixed walk order; ``__pycache__`` is skipped."""
+    fixed walk order; ``__pycache__`` and ``SALT_EXCLUDE`` are skipped."""
     h = hashlib.sha256()
     h.update(f"format:{CACHE_FORMAT};".encode())
     for dirpath, dirnames, filenames in sorted(os.walk(root)):
         dirnames.sort()
         rel_dir = os.path.relpath(dirpath, root)
-        if "__pycache__" in rel_dir.split(os.sep):
+        parts = rel_dir.split(os.sep)
+        if parts[0] in SALT_EXCLUDE or "__pycache__" in parts:
             continue
         for fn in sorted(filenames):
             if not fn.endswith(SALT_SUFFIXES):

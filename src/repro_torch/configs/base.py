@@ -193,16 +193,8 @@ def register(cfg: ArchConfig) -> ArchConfig:
 
 
 def _populate() -> None:
-    import repro_torch.configs.command_r_35b  # noqa: F401  (registers)
-    import repro_torch.configs.deepseek_moe_16b  # noqa: F401
-    import repro_torch.configs.gemma3_12b  # noqa: F401
-    import repro_torch.configs.jamba_1_5_large_398b  # noqa: F401
-    import repro_torch.configs.llava_next_mistral_7b  # noqa: F401
-    import repro_torch.configs.mamba2_1_3b  # noqa: F401
-    import repro_torch.configs.mixtral_8x22b  # noqa: F401
-    import repro_torch.configs.phi3_mini_3_8b  # noqa: F401
-    import repro_torch.configs.stablelm_3b  # noqa: F401
-    import repro_torch.configs.whisper_small  # noqa: F401
+    """Registers every config (``repro_torch.configs.all``)."""
+    import repro_torch.configs.all  # noqa: F401
 
 
 def get_config(name: str) -> ArchConfig:

@@ -4,7 +4,9 @@ Copy of ``repro.core.harness``: ``ServerSpec`` and ``Experiment`` (with
 the resolution of its profile, service model and token lengths),
 ``build_simulator`` and ``run``, which execute one deterministic
 simulation on the host, and ``run_repeated``, the paper's 13 seeded
-repetitions as a one-point sweep (``repro_torch.sweep``).
+repetitions as a one-point sweep (``repro_torch.sweep``), and the
+deprecated ``run_engine_experiment`` shim over
+``repro_torch.core.runtime.EngineRuntime``.
 ``Experiment`` runs on the vector runtime too (``repro_torch.vector``).
 """
 from __future__ import annotations
@@ -188,3 +190,30 @@ def run_repeated(exp: Experiment, reps: int = 13,
                       fail_fast=True)
     vals = [row.metrics["value"] for row in frame.rows]
     return confidence95(vals), vals
+
+
+# ---------------------------------------------------------------------------
+# Real-engine mode: deprecated shim over repro_torch.core.runtime.EngineRuntime.
+# ---------------------------------------------------------------------------
+def run_engine_experiment(engines: list, clients: Sequence[ClientConfig], *,
+                          policy: str = "round_robin", duration: float = 10.0,
+                          prompt_len: int = 16, max_new_tokens: int = 4,
+                          vocab: int = 256, seed: int = 0,
+                          time_scale: float = 1.0) -> LatencyRecorder:
+    """Deprecated: use ``repro_torch.core.runtime.EngineRuntime``.
+
+    Kept, with the reference's signature and warning, for callers of the
+    old entry point: it runs ``EngineRuntime`` on the wall clock for
+    ``duration`` seconds and returns its recorder.
+    """
+    import warnings
+
+    from repro_torch.core.runtime import EngineRuntime
+    warnings.warn("run_engine_experiment is deprecated; use "
+                  "repro_torch.core.runtime.EngineRuntime",
+                  DeprecationWarning, stacklevel=2)
+    rt = EngineRuntime(engines, clients, policy=policy, duration=duration,
+                       prompt_len=prompt_len, max_new_tokens=max_new_tokens,
+                       vocab=vocab, seed=seed, time_scale=time_scale)
+    rt.run()
+    return rt.recorder

@@ -50,13 +50,24 @@ from repro_torch.core.stats import LatencyRecorder, MetricsPipeline
 
 # injection kinds the wall-clock backend honors; speed scaling and
 # hedging need simulator control over service execution and are
-# reported as unsupported, as the reference does
+# reported as unsupported, as the reference does (and so is
+# ``legacy_mode``, which the reference's engine runtime ignores)
 _ENGINE_INJECTIONS = ("server_join", "server_drain", "server_fail",
                       "set_policy", "set_admission", "set_scale",
                       "set_retry", "set_breaker")
 
 
-class SimulatorRuntime:
+class Runtime:
+    """A scenario execution backend: run once, expose telemetry."""
+
+    recorder: LatencyRecorder
+    telemetry: MetricsPipeline
+
+    def run(self) -> MetricsPipeline:
+        raise NotImplementedError
+
+
+class SimulatorRuntime(Runtime):
     """Virtual-time backend — thin adapter over ``build_simulator``.
     Runs on the host: it makes no device claim and never touches torch."""
 
@@ -170,7 +181,7 @@ class EngineServerHandle:
         self.connected.discard(client_id)
 
 
-class EngineRuntime:
+class EngineRuntime(Runtime):
     """Drive real engines with the harness's open-loop client machinery.
 
     Arrivals come lazily from ``ClientGenerator`` (the reference's RNG
@@ -313,6 +324,10 @@ class EngineRuntime:
             # hedging is simulator-only: surface it as unsupported
             injections.append(Injection(0.0, "set_hedge",
                                         {"delay": exp.hedge_delay}))
+        if exp.legacy_mode:
+            # so is the legacy open-loop mode: the runtime serves the
+            # experiment in its current mode and records the skip
+            injections.append(Injection(0.0, "legacy_mode", {}))
         # spec-derived joins/drains get seq=-1: the simulator schedules
         # them BEFORE the compiled injections at equal timestamps
         for s in exp.servers:

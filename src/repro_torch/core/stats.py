@@ -267,6 +267,12 @@ def _as_float_array(xs) -> np.ndarray:
     return np.asarray(xs, float)
 
 
+def pctl(xs, q: float) -> float:
+    if len(xs) == 0:
+        return float("nan")
+    return float(np.percentile(_as_float_array(xs), q))
+
+
 def quantiles_partition(xs, qs) -> np.ndarray:
     """``np.percentile``-style linear-interpolation quantiles via ONE
     ``np.partition`` pass over the floor/ceil order statistics."""

@@ -223,8 +223,9 @@ def test_code_salt_env_override(monkeypatch):
 
 def test_code_salt_covers_the_cuda_sources(tmp_path, monkeypatch):
     """The salt digests every .py, .cu, .cuh and .h file under the package
-    root: editing a kernel's source invalidates the cache, and nothing
-    else (a build output, a bytecode cache) moves it."""
+    root but ``analysis/``, as the reference's leaves its linter out:
+    editing a kernel's source invalidates the cache, and nothing else (a
+    build output, a bytecode cache, the static analysis) moves it."""
     monkeypatch.delenv("REPRO_TORCH_CACHE_SALT", raising=False)
     code_salt.cache_clear()
     assert code_salt() == tree_digest(PACKAGE_ROOT)
@@ -238,6 +239,8 @@ def test_code_salt_covers_the_cuda_sources(tmp_path, monkeypatch):
     (root / "__pycache__").mkdir()
     (root / "__pycache__" / "x.py").write_text("x = 1\n")
     (root / "kernels" / "vector_step.so").write_bytes(b"\x7fELF")
+    rules = root / "analysis" / "lint" / "rules.py"
+    rules.write_text(rules.read_text() + "# edited\n")
     assert tree_digest(str(root)) == base
     seen = {base}
     for name, text in (("vector_step.cu", "// edited\n"),

@@ -319,3 +319,23 @@ def test_cli_engine_stub_report_equal_to_reference(name, capsys):
     assert port_out[1:] == ref_out[1:]
     if name == "retry-storm":
         assert port_out[1].startswith("  resilience: shed=0 timeouts=")
+
+
+def test_run_engine_experiment_shim_warns_and_returns_recorder():
+    """The deprecated entry point, as the reference keeps it: a
+    ``DeprecationWarning``, then ``EngineRuntime`` on the wall clock."""
+    from repro_torch.core.client import ClientConfig, ConstantQPS
+    from repro_torch.core.harness import run_engine_experiment
+    from repro_torch.core.profiles import FixedProfile
+    from repro_torch.core.stats import LatencyRecorder
+    from repro_torch.serving.engine import StubEngine
+    engines = [StubEngine(FixedProfile("fixed", 0.002), workers=2, seed=i)
+               for i in range(2)]
+    with pytest.warns(DeprecationWarning, match="EngineRuntime"):
+        rec = run_engine_experiment(
+            engines, [ClientConfig(0, ConstantQPS(200.0))],
+            policy="jsq", duration=0.3, seed=4)
+    assert isinstance(rec, LatencyRecorder)
+    assert rec.overall().n > 0
+    assert issubclass(trt.EngineRuntime, trt.Runtime)
+    assert issubclass(trt.SimulatorRuntime, trt.Runtime)

@@ -347,3 +347,14 @@ def test_confidence95_known_values(xs, want):
             assert math.isnan(g)
         else:
             assert g == pytest.approx(w, rel=1e-12)
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 7, 1000])
+def test_pctl_equal_to_reference(n):
+    xs = np.random.default_rng((11, n)).lognormal(-5.0, 1.0, n)
+    for sample in (xs, list(xs), tuple(xs)):
+        for q in (0.0, 50.0, 99.0, 99.9, 100.0):
+            got, want = tstats.pctl(sample, q), jstats.pctl(sample, q)
+            assert type(got) is float
+            assert got == want or (math.isnan(got) and math.isnan(want))
+            assert math.isnan(got) == (n == 0)

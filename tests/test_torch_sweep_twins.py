@@ -270,8 +270,8 @@ def _imported_roots(path: str) -> set:
 
 def test_twins_and_chip_smoke_import_neither_jax_nor_repro():
     """Imported, the twins, the training modules, the launch and
-    distribution tooling, the NumPy vector backend's modules and
-    ``chip_smoke.py`` load none of ``FORBIDDEN``; and no import
+    distribution tooling, the NumPy vector backend's modules, the
+    analysis layer and ``chip_smoke.py`` load none of ``FORBIDDEN``; and no import
     statement anywhere in the
     port, the twins, the example twins (scripts: read, not run) or
     ``chip_smoke.py`` names one."""
@@ -286,7 +286,9 @@ def test_twins_and_chip_smoke_import_neither_jax_nor_repro():
                "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
                "repro_torch.launch.perf", "repro_torch.launch.render",
                "repro_torch.distributed.sharding",
-               "repro_torch.core.profiles", "repro_torch.vector.runtime"]
+               "repro_torch.core.profiles", "repro_torch.vector.runtime",
+               "repro_torch.analysis.__main__", "repro_torch.analysis.check",
+               "repro_torch.analysis.lint", "repro_torch.configs.all"]
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
