@@ -156,6 +156,7 @@ def _vector_row(label: str, cfg: VectorConfig, sweep: Sweep, n_tasks: int,
         "speedup_vs_sim": sim_wall / warm,
         "cold_speedup_vs_sim": sim_wall / cold,
         "errors": sum(1 for r in rows if not r.ok),
+        "n_devices": cfg.resolve_devices(),   # cell-axis shards
         "bucket_hist": bucket_histogram(sweep)}
     if cfg.device == "cuda":
         row["launches"] = launches      # the warm run's kernel launches

@@ -30,7 +30,9 @@ trains phi3-mini-3.8b and mamba2-1.3b at full width and depth:
    failure, a gray failure; full duration, 13 reps a point), each with
    ``scalar_scan`` and ``fused_quantiles`` launched once, three cells of
    each against the CPU, the control pre-pass's ``control_log`` read on
-   the card and on the CPU, and ``flash-crowd-autoscale`` at seed 3 on
+   the card at those three cells (each equal to its compiled program's)
+   and on the CPU at the middle one, and ``flash-crowd-autoscale`` at
+   seed 3 on
    the host's event simulator (``sim``) against the card's vector
    runtime within the reference's bounds (``SIM_N_REL``,
    ``SIM_SCALE_S``);
@@ -44,8 +46,9 @@ trains phi3-mini-3.8b and mamba2-1.3b at full width and depth:
    workers come from a forkserver), whose frame must equal the serial
    one and whose vector rows must equal the CPU's;
 4d. runs the planner (``repro_torch.plan.run_plan``) on bench_plan's
-   FULL problem (steady/jsq at 2600 QPS, 12 s; 3 starts x 150 Adam
-   steps through the surrogate, then the exact probe ladder) on the card
+   FULL problem (steady/jsq at 2600 QPS, 12 s; 3 starts, the Adam steps
+   through the surrogate cut from 150 to ``PLAN_STEPS`` a start, then
+   the exact probe ladder) on the card
    and on the CPU: ``n_star``, the probe sequence and ``cell_evals``
    equal, verified values within ``PLAN_VALUE_RTOL``, the continuous
    capacity within ``PLAN_CAPACITY_TOL``, at most a tenth of the dense
@@ -53,8 +56,11 @@ trains phi3-mini-3.8b and mamba2-1.3b at full width and depth:
    launch a ladder grid; prints ``plan:`` lines with the walls;
 4e. runs a soft ``steady`` grid (8 s, seed 3, ``SOFT_REPS`` cells) on the
    card and on the CPU: no kernel launched (soft consts take the plain
-   step), rows equal within ``SOFT_RTOL``; prints a ``soft:`` line with
-   the walls;
+   step), rows equal within ``SOFT_RTOL``; then on the card with the
+   default ``tau`` and ``band_frac`` passed explicitly (the same bits),
+   and at ``SOFT_KNOBS`` on the card and on the CPU (no launch, rows
+   within ``SOFT_RTOL``, rows moved from the defaults'); prints a
+   ``soft:`` line with the walls;
 4f. runs the result cache (``repro_torch.cache``) on the card, in a
    scratch directory under ``build/`` removed at the end: the fig1 sweep
    cold through a fresh cache (one ``scalar_scan`` and one
@@ -68,9 +74,19 @@ trains phi3-mini-3.8b and mamba2-1.3b at full width and depth:
    directory of its own: cold (the ladder's grids launch) and warm
    (``cell_evals`` 0, no launch, the same ``n_star``, probes and
    verified values); prints ``cache:`` lines with the walls;
+4g. rehearses the shard layer of ``VectorConfig.devices`` on one card
+   (``run_shard_phase``): prints ``torch.cuda.device_count()`` and
+   ``VectorConfig().resolve_devices()``, then runs step 4's fig1 and
+   batched-serving grids with the shard hook (``runtime._shard_devices``)
+   replaced by 2 copies of cuda:0 and ``devices=2``, and fig1 in 3
+   shards of 39 cells (``SHARD_RUNS``): rows bit-equal to step 4's
+   unsharded rows, the scan launched once a shard and
+   ``fused_quantiles`` once a grid; prints ``shard`` lines with the walls
+   beside step 4's;
 5. runs phi3-mini-3.8b at full width and a depth of 2 layers on the CPU
    (plain versions) and on the card (kernels), from the same seeded
-   weights: a 128-token prompt and 8 greedy tokens, equal tokens and
+   weights: a 128-token prompt and ``FULL_WIDTH_STEPS`` greedy tokens
+   after the prefill, equal tokens and
    logits within ``F32_LOGIT_TOL`` with the weights in f32; the served
    bf16 weights, the card fed the CPU's tokens, within ``BF16_LOGIT_TOL``;
    then mamba2-1.3b the same way, with a 384-token prompt (the SSD scan
@@ -93,10 +109,13 @@ trains phi3-mini-3.8b and mamba2-1.3b at full width and depth:
    llava-next-mistral-7b at 2 layers behind a 2880-patch image prefix
    (a 3008-long prefill; ``LLAVA_F32_LOGIT_TOL``); for an MoE model the
    share of router choices (layer, token, k) that the card and the CPU
-   agree on is recorded; each model is freed before the next;
+   agree on is recorded; the weights drawn on the host are drawn by one
+   thread ahead of the checks, in order (``draw_ahead``), and each model
+   is freed after its check;
 6. serves phi3-mini-3.8b and then mamba2-1.3b at full width through
    ``repro_torch.launch.serve.main`` (2 replicas sharing one copy of the
-   weights, open-loop clients, 10 s each), checks that every request
+   weights, open-loop clients, ``SERVE_SECONDS`` each), checks that
+   every request
    completed with finite latencies and that the path's kernels were
    launched (both attention kernels for phi3, ``flash_attention`` once
    per layer and prefill, ``decode_attention`` once per layer and decode
@@ -146,13 +165,23 @@ trains phi3-mini-3.8b and mamba2-1.3b at full width and depth:
    loss within ``TRAIN_LOSS_RTOL``, the gradients' global norm within
    ``TRAIN_GNORM_RTOL`` and every gradient leaf within
    ``TRAIN_GRAD_TOL`` of its max|g|, the path's kernel launched twice a
-   layer (the forward and the remat recompute); then both at full depth
+   layer (the forward and the remat recompute); phi3's step on the card
+   again with the full remat and with ``REPRO_OPTS=remat_dots``, both
+   under deterministic algorithms: loss and every leaf bit-equal
+   (``check_remat_dots``); ``FlashAttentionFn``'s gradient at the
+   reference's ``train_4k`` length (``FLASH_4K``: S = T = 4096, bf16)
+   bit-equal to autograd of the plain version without its per-chunk
+   checkpoints (``unchecked_flash``), with the bytes each keeps for the
+   backward and its peak across it, the repaired path's held under one
+   chunk's logits plus the tensors and under one chunk's working set
+   (``check_flash_4k``); then both at full depth
    in bf16 through ``repro_torch.launch.train.main`` (its defaults:
    batch 8, seq 128, mamba2 at 512; ``TRAIN_STEPS`` steps): a finite
    loss every step, the last below the first, the kernel twice a layer
    and step, with the step time, tokens/s and the card's peak memory
    printed; then, in a subprocess with deterministic algorithms
-   (``CUBLAS_WORKSPACE_CONFIG=:4096:8``), ``examples/torch_port/
+   (``CUBLAS_WORKSPACE_CONFIG=:4096:8``) started beside step 5,
+   ``examples/torch_port/
    train_lm.py`` to its assert and ``launch.train`` straight against
    checkpointed at step 3 and resumed (``RESUME_ARGS``), whose step-6
    checkpoints must hold equal bits (checkpoints under ``build/``,
@@ -189,8 +218,10 @@ trains phi3-mini-3.8b and mamba2-1.3b at full width and depth:
    compiler; the phase must end within ``ANALYSIS_BUDGET_S``;
 8. times each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, with CUDA events (median of
-   repeated runs), and fails where a kernel's time reads under its
-   bound (every SSD case, and every kernel of the kernels line);
+   repeated runs; a scan's plain version, seconds a call, once), and
+   fails where a kernel's time reads under its bound (every SSD case,
+   and every kernel of the kernels line); prints the host seconds of
+   each step (``Laps``);
 9. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
    ...}`` line.
 
@@ -201,6 +232,7 @@ result.  The full record is also written to
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import io
@@ -309,23 +341,25 @@ LLAVA_F32_LOGIT_TOL = 2e-3
 #: decays, which every exp(cum_t - cum_s) inherits (as
 #: tests/test_torch_cuda_kernels.py does)
 SSD_TOL = 2e-4
-#: the serving runs of the main path (launch.serve flags); mamba2's
-#: 512-token prompts cross the scan's chunk boundary (256)
+#: the serving runs of the main path (launch.serve flags), each
+#: SERVE_SECONDS of open-loop load; mamba2's 512-token prompts cross the
+#: scan's chunk boundary (256)
+SERVE_SECONDS = "5"
 SERVE_ARGS = ["--arch", "phi3-mini-3.8b", "--replicas", "2",
               "--max-batch", "4", "--prompt-len", "128", "--max-new", "32",
-              "--clients", "2", "--qps", "2", "--duration", "10",
+              "--clients", "2", "--qps", "2", "--duration", SERVE_SECONDS,
               "--policy", "jsq", "--seed", "0"]
 MAMBA_SERVE_ARGS = ["--arch", "mamba2-1.3b", "--replicas", "2",
                     "--max-batch", "4", "--prompt-len", "512",
                     "--max-new", "32", "--clients", "2", "--qps", "2",
-                    "--duration", "10", "--policy", "jsq", "--seed", "0"]
+                    "--duration", SERVE_SECONDS, "--policy", "jsq", "--seed", "0"]
 #: serve-phi3's flags for gemma3-12b, with prompts past its 1024-token
 #: sliding window (the engine prefills them at their exact length)
 GEMMA_PROMPT = 1100
 GEMMA_SERVE_ARGS = ["--arch", "gemma3-12b", "--replicas", "2",
                     "--max-batch", "4", "--prompt-len", str(GEMMA_PROMPT),
                     "--max-new", "32", "--clients", "2", "--qps", "2",
-                    "--duration", "10", "--policy", "jsq", "--seed", "0"]
+                    "--duration", SERVE_SECONDS, "--policy", "jsq", "--seed", "0"]
 #: gemma3-12b's decode cache length in that run (make_warmed_engine)
 GEMMA_SERVE_MAX_LEN = GEMMA_PROMPT + 32 + 32
 #: the cut of jamba-1.5-large-398b's pattern group that one card holds at
@@ -339,10 +373,14 @@ WHISPER_FRAMES = 1500
 #: llava-next-mistral-7b's anyres image prefix: a 2x2 grid of 336-pixel
 #: tiles and the base image, 5 x 576 patches
 LLAVA_PATCHES = 5 * 576
-#: the full-width checks of step 5 after phi3 and mamba2 (keyword
-#: arguments of check_full_width).  gemma3's 6 layers are one pattern
-#: group (5 sliding-window layers and a global one); its prompt is longer
-#: than the window.  jamba's cut is drawn on the card (its 11.9 G draws
+#: the greedy steps after the prefill in each full-width check (the
+#: logits of the prefill and of each step are held)
+FULL_WIDTH_STEPS = 4
+#: the full-width checks of step 5 (keyword arguments of
+#: check_full_width): phi3 and mamba2 at 2 layers, mamba2's prompt
+#: padded into a second scan chunk, then the rest.  gemma3's 6 layers
+#: are one pattern group (5 sliding-window layers and a global one); its
+#: prompt is longer than the window.  jamba's cut is drawn on the card (its 11.9 G draws
 #: take ~80 s on the host's generator) and copied to the host; its f32
 #: run keeps the expert banks in bf16 (moe_specs' dtype), which halves
 #: the host's second copy; its 384-token prompt crosses the scan's
@@ -351,6 +389,9 @@ LLAVA_PATCHES = 5 * 576
 #: 2880-patch prefix (a 3008-long prefill), both on weights drawn at
 #: ``layer_std_specs``' scales (see LLAVA_F32_LOGIT_TOL)
 FULL_WIDTH_CHECKS = [
+    dict(arch="phi3-mini-3.8b"),
+    dict(arch="mamba2-1.3b", prompt_len=384, f32_tol=MAMBA_F32_LOGIT_TOL,
+         bf16_tol=MAMBA_BF16_LOGIT_TOL),
     dict(arch="gemma3-12b", layers=6, prompt_len=GEMMA_PROMPT,
          f32_tol=GEMMA_F32_LOGIT_TOL),
     dict(arch="stablelm-3b"),
@@ -367,13 +408,13 @@ FULL_WIDTH_CHECKS = [
 DEEPSEEK_SERVE_ARGS = ["--arch", "deepseek-moe-16b", "--replicas", "2",
                        "--max-batch", "4", "--prompt-len", "128",
                        "--max-new", "32", "--clients", "2", "--qps", "2",
-                       "--duration", "10", "--policy", "jsq", "--seed", "0"]
+                       "--duration", SERVE_SECONDS, "--policy", "jsq", "--seed", "0"]
 #: serve-phi3's flags for llava-next-mistral-7b at full depth (step 6e):
 #: token prompts, as the JAX package's engine serves this arch
 LLAVA_SERVE_ARGS = ["--arch", "llava-next-mistral-7b", "--replicas", "2",
                     "--max-batch", "4", "--prompt-len", "128",
                     "--max-new", "32", "--clients", "2", "--qps", "2",
-                    "--duration", "10", "--policy", "jsq", "--seed", "0"]
+                    "--duration", SERVE_SECONDS, "--policy", "jsq", "--seed", "0"]
 #: the decode cache length of that run (make_warmed_engine: prompt + new
 #: tokens + 32) and the prefill bucket of its 128-token prompts
 SERVE_MAX_LEN = 128 + 32 + 32
@@ -601,21 +642,27 @@ SCAN_CASES = [("scalar_scan/fig1", "fig1"),
               ("scalar_scan/steady16", "steady"),
               ("scalar_scan/server-failure", "server-failure"),
               ("batched_scan/batched8", "batched-serving")]
-#: repeats of a scan's plain version when it is timed (seconds a call)
-PLAIN_SCAN_RUNS = 3
 
 
 def check_scan(name, batched, n_real, inputs, time_plain=True) -> dict:
     """Kernel vs plain version of one scan on the card; returns the
-    record (errors, times, bound).  ``time_plain=False`` leaves the plain
-    version's time out (``plain_ms`` None)."""
+    record (errors, times, bound).  The plain version (seconds a call:
+    one launch a slot) is timed once, on the call that is compared, with
+    CUDA events; ``time_plain=False`` leaves its time out (``plain_ms``
+    None)."""
     from repro_torch.kernels import ref, vector_step
     consts, carry, xs = inputs
     kern = vector_step.batched_scan if batched else vector_step.scalar_scan
     plain = ref.batched_scan if batched else ref.scalar_scan
     kc, ky = kern(consts, carry, xs)
-    pc, py = plain(consts, carry, xs)
     torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    pc, py = plain(consts, carry, xs)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
     # the kernel runs the plain version's f32 operations in the same
     # order (lane sums left to right, no FMA): every output bit-equal
     worst = 0.0
@@ -640,8 +687,7 @@ def check_scan(name, batched, n_real, inputs, time_plain=True) -> dict:
     ms = cuda_ms(lambda: kern(consts, carry, xs))
     return {"shape": {"T": T, "C": C, "S": S, "real_slots": n_real},
             "max_abs_err": worst, "ms": ms, "us_per_slot": ms * 1e3 / T,
-            "plain_ms": (cuda_ms(lambda: plain(consts, carry, xs),
-                                 PLAIN_SCAN_RUNS) if time_plain else None),
+            "plain_ms": plain_ms if time_plain else None,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
@@ -1183,20 +1229,41 @@ def routes_agree(a, b) -> float:
     return same / sum(x.numel() for x in a)
 
 
+def model_args(chk: dict) -> dict:
+    """The keyword arguments of ``full_width_model`` among a full-width
+    check's (``FULL_WIDTH_CHECKS``)."""
+    names = ("arch", "layers", "prompt_len", "over", "extra",
+             "draw_on_card", "layer_std")
+    return {k: v for k, v in chk.items() if k in names}
+
+
+def draw_ahead(pool, checks: list) -> list:
+    """For each full-width check, a future of its ``full_width_model``
+    drawn on the host by ``pool`` (one thread, in order, while the
+    checks before it run), or None where the weights are drawn on the
+    card: the host's generator gives the same weights in any thread."""
+    return [None if chk.get("draw_on_card")
+            else pool.submit(full_width_model, **model_args(chk))
+            for chk in checks]
+
+
 def check_full_width(device, arch: str = "phi3-mini-3.8b",
                      prompt_len: int = 128, f32_tol: float = F32_LOGIT_TOL,
                      bf16_tol: float = BF16_LOGIT_TOL, layers=2, over=None,
                      extra=None, draw_on_card: bool = False,
                      bf16_banks: bool = False,
-                     layer_std: bool = False) -> dict:
-    """``arch`` at full width (``full_width_model``): the same seeded
-    weights on the CPU (plain versions) and on the card (kernels)."""
+                     layer_std: bool = False, model=None) -> dict:
+    """``arch`` at full width (``full_width_model``, or ``model``, its
+    result drawn ahead): the same seeded weights on the CPU (plain
+    versions) and on the card (kernels), ``FULL_WIDTH_STEPS`` greedy
+    steps after the prefill."""
     from repro_torch.models import param as P
     from repro_torch.models import registry as R
     t_phase = time.perf_counter()
-    cfg, params, prompt, inputs, max_len = full_width_model(
+    cfg, params, prompt, inputs, max_len = model or full_width_model(
         arch, layers, prompt_len, over, extra, draw_on_card, layer_std)
-    steps = 8
+    draw_s = time.perf_counter() - t_phase
+    steps = FULL_WIDTH_STEPS
     rec = {"cfg": {"name": cfg.name, "num_layers": cfg.num_layers,
                    "pattern": list(cfg.resolved_pattern),
                    "d_model": cfg.d_model, "vocab": cfg.vocab_size,
@@ -1206,6 +1273,7 @@ def check_full_width(device, arch: str = "phi3-mini-3.8b",
            "drawn_on": "card" if draw_on_card else "host",
            "layer_std": layer_std,
            "f32_expert_banks": "bf16" if bf16_banks else "f32",
+           "drawn_ahead": model is not None, "draw_wait_s": draw_s,
            "host_mem_total_gb": host_mem_total_gb()}
     print(f"full width {arch}: host MemTotal "
           f"{rec['host_mem_total_gb']:.1f} GB, {cfg.num_layers} layers "
@@ -1302,8 +1370,10 @@ def check_full_width(device, arch: str = "phi3-mini-3.8b",
     rec["phase_s"] = time.perf_counter() - t_phase
     print(f"full width {arch}: {cfg.num_layers} layers, "
           f"{rec['cfg']['params']:,} "
-          f"parameters, {rec['phase_s']:.1f} s (CPU greedy f32 "
-          f"{cpu_s:.1f} s, bf16 {cpu16_s:.1f} s)", flush=True)
+          f"parameters, {rec['phase_s']:.1f} s (weights "
+          f"{'waited for' if model is not None else 'drawn'} {draw_s:.1f} "
+          f"s, CPU greedy f32 {cpu_s:.1f} s, bf16 {cpu16_s:.1f} s)",
+          flush=True)
     return rec
 
 
@@ -1669,23 +1739,27 @@ def chaos_experiment(name: str, i: int):
 
 def check_chaos_control(chaos) -> dict:
     """The control pre-pass's actions, read through ``VectorRuntime`` on
-    the card and on the CPU for three cells of each chaos grid: equal."""
+    the card for three cells of each chaos grid, each equal to its
+    compiled program's, and on the CPU for the middle one: equal."""
     from repro_torch.vector import VectorConfig, VectorRuntime
     out = {}
     for name, progs, seeds in chaos:
-        for i in (0, len(progs) // 2, len(progs) - 1):
+        picks = (0, len(progs) // 2, len(progs) - 1)
+        for i in picks:
             logs = []
-            for device in ("cuda", "cpu"):
+            for device in ("cuda", "cpu") if i == picks[1] else ("cuda",):
                 rt = VectorRuntime(chaos_experiment(name, i),
                                    rep=seeds[i][1],
                                    config=VectorConfig(device=device))
                 rt.run()
                 logs.append(rt.control_log)
-            if logs[0] != logs[1] or logs[0] != progs[i].control_actions:
-                fail(f"{name} cell {i}: control_log on the card "
-                     f"{logs[0]} != the CPU's {logs[1]}")
+            if any(log != progs[i].control_actions for log in logs):
+                fail(f"{name} cell {i}: control_log on the card (and the "
+                     f"CPU) {logs} != the compiled program's "
+                     f"{progs[i].control_actions}")
             out[f"{name}/{i}"] = logs[0]
-        print(f"control_log {name}: card equal to CPU at 3 cells "
+        print(f"control_log {name}: card equal to the compiled programs "
+              f"at 3 cells and to the CPU at cell {picks[1]} "
               f"({sum(len(v) for k, v in out.items() if k.startswith(name))}"
               f" actions)", flush=True)
     return out
@@ -1847,6 +1921,8 @@ def run_sweep_phase(results, vector_kernels) -> tuple:
 #: agreement test's operating point) x 13 reps, card against CPU
 SOFT_REPS = 13
 SOFT_RTOL = 1e-5
+#: soft mode's knobs away from the defaults (tau 0.05, band_frac 5e-4)
+SOFT_KNOBS = dict(tau=0.1, band_frac=2e-3)
 #: the plan phase's card-vs-CPU bounds: continuous capacity (servers),
 #: verified values (relative), and the cell budget (the dense grid's
 #: cells over the bench's required 10x)
@@ -1854,64 +1930,79 @@ PLAN_CAPACITY_TOL = 1e-2
 PLAN_VALUE_RTOL = 1e-6
 
 
-def run_plan_phase(vector_kernels) -> tuple:
-    """bench_plan's FULL problem through ``run_plan`` on the card and on
-    the CPU (step 4d); -> (record, the card run's launches)."""
+#: step 4d's optimizer steps a start: bench_plan's FULL problem (its
+#: scenario, grid, 3 starts, 16384 draws, probe ladder) with the
+#: optimizer cut from its 150 steps a start
+PLAN_STEPS = 50
+
+
+def plan_run(dev: str) -> tuple:
+    """bench_plan's FULL problem, ``PLAN_STEPS`` steps a start, through
+    ``run_plan`` on ``dev`` -> (record, the verified values)."""
     from benchmarks.torch_port.bench_plan import FULL, SEED, _overrides
+    from repro_torch.kernels import vector_quantiles, vector_step
     from repro_torch.plan import PlanSpec, run_plan
     from repro_torch.vector import VectorConfig
     spec = PlanSpec(scenario="steady", objective="p99", slo=FULL["slo"],
-                    overrides=_overrides(FULL), steps=FULL["steps"],
+                    overrides=_overrides(FULL), steps=PLAN_STEPS,
                     starts=FULL["starts"], samples=FULL["samples"],
                     probe_reps=FULL["probe_reps"], reps=FULL["reps"],
                     seed=SEED)
-    rec, runs = {}, {}
-    for dev in ("cuda", "cpu"):
-        for k in vector_kernels:
-            k.launches = 0
+    kernels = (vector_step.scalar_scan, vector_step.batched_scan,
+               vector_quantiles.fused_quantiles)
+    for k in kernels:
+        k.launches = 0
+    if dev == "cuda":
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        runs[dev] = run_plan(spec, vector_config=VectorConfig(device=dev))
-        wall = time.perf_counter() - t0
-        r = runs[dev]
-        rec[dev] = {"wall_s": wall, "capacity": r.params["capacity"],
-                    "n_star": r.n_star, "cell_evals": r.cell_evals,
-                    "probes": [(p["n"], p["meets"]) for p in r.probes],
-                    "verified_mean": r.verified["mean"],
-                    "launches": {k.__name__: k.launches
-                                 for k in vector_kernels}}
-        print(f"plan: {dev} wall {wall:.3f} s, capacity "
-              f"{r.params['capacity']:.6f}, n_star {r.n_star}, probes "
-              f"{rec[dev]['probes']}, {r.cell_evals} exact cells, p99 "
-              f"{r.verified['mean']:.6g}, launches "
-              f"{rec[dev]['launches']}", flush=True)
-    gpu, cpu = runs["cuda"], runs["cpu"]
+    t0 = time.perf_counter()
+    r = run_plan(spec, vector_config=VectorConfig(device=dev))
+    wall = time.perf_counter() - t0
+    return ({"wall_s": wall, "capacity": r.params["capacity"],
+             "n_star": r.n_star, "cell_evals": r.cell_evals,
+             "probes": [(p["n"], p["meets"]) for p in r.probes],
+             "verified_mean": r.verified["mean"],
+             "launches": {k.__name__: k.launches for k in kernels}},
+            r.verified["values"])
+
+
+def run_plan_phase() -> tuple:
+    """``plan_run`` on the card and on the CPU (step 4d); -> (record, the
+    card run's launches)."""
+    from benchmarks.torch_port.bench_plan import FULL
+    rec, values = {"steps": PLAN_STEPS}, {}
+    for dev in ("cuda", "cpu"):
+        rec[dev], values[dev] = plan_run(dev)
+        r = rec[dev]
+        print(f"plan: {dev} wall {r['wall_s']:.3f} s, capacity "
+              f"{r['capacity']:.6f}, n_star {r['n_star']}, probes "
+              f"{r['probes']}, {r['cell_evals']} exact cells, p99 "
+              f"{r['verified_mean']:.6g}, launches {r['launches']}",
+              flush=True)
+    gpu, cpu = rec["cuda"], rec["cpu"]
     grid_cells = FULL["n_grid"] * FULL["reps"]
-    if gpu.n_star != cpu.n_star or \
-            rec["cuda"]["probes"] != rec["cpu"]["probes"]:
-        fail(f"plan: card n_star {gpu.n_star} probes "
-             f"{rec['cuda']['probes']} vs CPU {cpu.n_star} "
-             f"{rec['cpu']['probes']}")
-    if not np.allclose(gpu.verified["values"], cpu.verified["values"],
+    if gpu["n_star"] != cpu["n_star"] or gpu["probes"] != cpu["probes"]:
+        fail(f"plan: card n_star {gpu['n_star']} probes {gpu['probes']} "
+             f"vs CPU {cpu['n_star']} {cpu['probes']}")
+    if not np.allclose(values["cuda"], values["cpu"],
                        rtol=PLAN_VALUE_RTOL, atol=0.0):
-        fail(f"plan: verified values {gpu.verified['values']} vs CPU "
-             f"{cpu.verified['values']}")
-    gap = abs(gpu.params["capacity"] - cpu.params["capacity"])
+        fail(f"plan: verified values {values['cuda']} vs CPU "
+             f"{values['cpu']}")
+    gap = abs(gpu["capacity"] - cpu["capacity"])
     if gap > PLAN_CAPACITY_TOL:
         fail(f"plan: continuous capacity card vs CPU differs by {gap}")
-    if gpu.cell_evals * 10 > grid_cells:
-        fail(f"plan: {gpu.cell_evals} exact cells, more than "
+    if gpu["cell_evals"] * 10 > grid_cells:
+        fail(f"plan: {gpu['cell_evals']} exact cells, more than "
              f"{grid_cells}/10")
-    n = rec["cuda"]["launches"]
-    want = len(gpu.probes) + 1          # one grid a probe + the final one
+    n = gpu["launches"]
+    want = len(gpu["probes"]) + 1       # one grid a probe + the final one
     if n["scalar_scan"] != want or n["fused_quantiles"] != want \
             or n["batched_scan"]:
         fail(f"plan: {want} scalar_scan and fused_quantiles launches "
              f"expected (one a ladder grid), got {n}")
     rec["capacity_gap"] = gap
-    rec["cell_speedup"] = grid_cells / gpu.cell_evals
+    rec["cell_speedup"] = grid_cells / gpu["cell_evals"]
     print(f"plan: card equals CPU (n_star, probes, verified values; "
-          f"capacity gap {gap:.3g}); {gpu.cell_evals} cells vs "
+          f"capacity gap {gap:.3g}); {gpu['cell_evals']} cells vs "
           f"{grid_cells} of the dense grid ({rec['cell_speedup']:.2f}x)",
           flush=True)
     return rec, n
@@ -2067,49 +2158,153 @@ def run_cache_phase(vector_kernels, cache_root: Path, fig1) -> tuple:
     return rec, total
 
 
-def run_soft_phase(vector_kernels) -> dict:
-    """A soft ``steady`` grid on the card against the CPU (step 4e): the
-    plain step with the smoothed water-fill and the soft quantile head,
-    no kernel launch."""
-    from repro_torch.scenarios import get
-    from repro_torch.sweep.spec import spawn_seed
-    from repro_torch.vector import VectorConfig, compile_experiment, run_cells
-    prog = compile_experiment(get("steady", duration=8.0, seed=3).compile())
-    progs = [prog] * SOFT_REPS
-    seeds = [(spawn_seed(3, 0, rep), rep) for rep in range(SOFT_REPS)]
-    rec, rows = {}, {}
-    for dev in ("cuda", "cpu"):
-        for k in vector_kernels:
-            k.launches = 0
+def row_bits(row) -> tuple:
+    """A grid row's numbers and the bytes of its samples and interval
+    series, for bit-equality."""
+    return (row.n, row.mean, row.p50, row.p95, row.p99, row.dropped,
+            row.samples.tobytes(), row.n_ivl.tobytes(),
+            row.util_ivl.tobytes(), row.qdepth_ivl.tobytes())
+
+
+def run_soft_grid(progs, seeds, vector_kernels, **cfg) -> tuple:
+    """One soft grid through ``run_cells`` -> (rows, wall s, launches of
+    ``vector_kernels``)."""
+    from repro_torch.vector import VectorConfig, run_cells
+    for k in vector_kernels:
+        k.launches = 0
+    if cfg["device"] == "cuda":
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rows[dev] = run_cells(progs, seeds,
-                              VectorConfig(device=dev, soft=True))
-        rec[dev] = {"wall_s": time.perf_counter() - t0,
-                    "launches": {k.__name__: k.launches
-                                 for k in vector_kernels}}
-    if any(rec["cuda"]["launches"].values()):
-        fail(f"soft: a kernel was launched on soft consts: "
-             f"{rec['cuda']['launches']}")
+    t0 = time.perf_counter()
+    rows = run_cells(progs, seeds, VectorConfig(soft=True, **cfg))
+    return (rows, time.perf_counter() - t0,
+            {k.__name__: k.launches for k in vector_kernels})
+
+
+def soft_rows_close(label: str, card, cpu) -> float:
+    """Fails unless the card's soft rows are the CPU's within SOFT_RTOL
+    (``n`` and ``dropped`` equal); -> the largest relative gap."""
     worst = 0.0
-    for i, (g, c) in enumerate(zip(rows["cuda"], rows["cpu"])):
+    for i, (g, c) in enumerate(zip(card, cpu)):
         if g.n != c.n or g.dropped != c.dropped:
-            fail(f"soft cell {i}: n/dropped {g.n}/{g.dropped} vs CPU "
+            fail(f"{label} cell {i}: n/dropped {g.n}/{g.dropped} vs CPU "
                  f"{c.n}/{c.dropped}")
         for m in ("mean", "p50", "p95", "p99"):
             a, b = getattr(g, m), getattr(c, m)
             if not (math.isfinite(a) and math.isclose(a, b,
                                                       rel_tol=SOFT_RTOL)):
-                fail(f"soft cell {i} {m}: card {a!r} vs CPU {b!r}")
+                fail(f"{label} cell {i} {m}: card {a!r} vs CPU {b!r}")
             worst = max(worst, abs(a - b) / abs(b))
-    rec["cells"] = SOFT_REPS
-    rec["max_rel_diff"] = worst
+    return worst
+
+
+def run_soft_phase(vector_kernels) -> dict:
+    """A soft ``steady`` grid on the card against the CPU (step 4e): the
+    plain step with the smoothed water-fill and the soft quantile head,
+    no kernel launch; at the default knobs, then the defaults passed
+    explicitly (the same bits), then ``SOFT_KNOBS`` on the card and on
+    the CPU."""
+    from repro_torch.scenarios import get
+    from repro_torch.sweep.spec import spawn_seed
+    from repro_torch.vector import compile_experiment
+    prog = compile_experiment(get("steady", duration=8.0, seed=3).compile())
+    progs = [prog] * SOFT_REPS
+    seeds = [(spawn_seed(3, 0, rep), rep) for rep in range(SOFT_REPS)]
+    runs = {
+        "cuda": dict(device="cuda"), "cpu": dict(device="cpu"),
+        "cuda_explicit": dict(device="cuda", tau=0.05, band_frac=5e-4),
+        "cuda_knobs": dict(device="cuda", **SOFT_KNOBS),
+        "cpu_knobs": dict(device="cpu", **SOFT_KNOBS)}
+    rec, rows = {}, {}
+    for name, cfg in runs.items():
+        rows[name], wall, launches = run_soft_grid(progs, seeds,
+                                                   vector_kernels, **cfg)
+        rec[name] = {"wall_s": wall, "launches": launches}
+        if name.startswith("cuda") and any(launches.values()):
+            fail(f"soft {name}: a kernel was launched on soft consts: "
+                 f"{launches}")
+    worst = soft_rows_close("soft", rows["cuda"], rows["cpu"])
+    if [row_bits(r) for r in rows["cuda_explicit"]] != \
+            [row_bits(r) for r in rows["cuda"]]:
+        fail("soft: the defaults passed explicitly changed the rows")
+    worst_knobs = soft_rows_close("soft knobs", rows["cuda_knobs"],
+                                  rows["cpu_knobs"])
+    moved = sum((g.p50, g.p95, g.p99) != (d.p50, d.p95, d.p99)
+                for g, d in zip(rows["cuda_knobs"], rows["cuda"]))
+    if moved == 0:
+        fail(f"soft knobs {SOFT_KNOBS}: no row moved from the defaults'")
+    rec.update(cells=SOFT_REPS, max_rel_diff=worst, knobs=SOFT_KNOBS,
+               knobs_max_rel_diff=worst_knobs, knobs_rows_moved=moved)
     print(f"soft: steady 8 s x {SOFT_REPS} cells, card "
           f"{rec['cuda']['wall_s']:.3f} s, CPU {rec['cpu']['wall_s']:.3f} "
           f"s; rows equal within rtol "
-          f"{SOFT_RTOL} (max {worst:.3g}); p99 {rows['cuda'][0].p99:.6g}",
-          flush=True)
+          f"{SOFT_RTOL} (max {worst:.3g}); p99 {rows['cuda'][0].p99:.6g}; "
+          f"explicit defaults bit-equal ({rec['cuda_explicit']['wall_s']:.3f}"
+          f" s); {SOFT_KNOBS}: card {rec['cuda_knobs']['wall_s']:.3f} s, "
+          f"CPU {rec['cpu_knobs']['wall_s']:.3f} s, within rtol (max "
+          f"{worst_knobs:.3g}), {moved} of {SOFT_REPS} rows moved, p99 "
+          f"{rows['cuda_knobs'][0].p99:.6g}", flush=True)
     return rec
+
+
+#: step 4g: step 4's grids with the shard hook replaced by repeats of
+#: cuda:0 (grid, shards): each sharded grid launches its scan once a
+#: shard and the quantile head once; fig1's 117 cells in 3 shards too
+SHARD_RUNS = [("fig1", 2), ("batched-serving", 2), ("fig1", 3)]
+
+
+def run_shard_phase(grids, results, e2e, card: str,
+                    vector_kernels) -> tuple:
+    """Step 4g: the shard layer on one card.  ``_shard_devices`` (the one
+    place that chooses shard devices) is replaced by ``n`` copies of
+    cuda:0; the rows must be step 4's unsharded rows bit for bit; ->
+    (record, launches of ``vector_kernels``)."""
+    from repro_torch.vector import VectorConfig, run_cells
+    from repro_torch.vector import runtime as R
+    by_name = {name: (progs, seeds) for name, progs, seeds in grids}
+    rec = {"device_count": torch.cuda.device_count(),
+           "resolve_devices": VectorConfig().resolve_devices(), "runs": []}
+    print(f"shard: {card}; torch.cuda.device_count() "
+          f"{rec['device_count']}, VectorConfig().resolve_devices() "
+          f"{rec['resolve_devices']}", flush=True)
+    total = {k.__name__: 0 for k in vector_kernels}
+    real = R._shard_devices
+    try:
+        for name, n in SHARD_RUNS:
+            progs, seeds = by_name[name]
+            R._shard_devices = \
+                lambda cfg, count, n=n: [torch.device("cuda", 0)] * n
+            for k in vector_kernels:
+                k.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows = run_cells(progs, seeds,
+                             VectorConfig(device="cuda", devices=n))
+            wall = time.perf_counter() - t0
+            launches = {k.__name__: k.launches for k in vector_kernels}
+            want = {k: 0 for k in launches}
+            want["batched_scan" if progs[0].batched else "scalar_scan"] = n
+            want["fused_quantiles"] = 1
+            if launches != want:
+                fail(f"shard {name} x{n}: launches {launches}, expected "
+                     f"{want}")
+            for i, (a, b) in enumerate(zip(rows, results[name])):
+                if row_bits(a) != row_bits(b):
+                    fail(f"shard {name} x{n} cell {i}: the row differs "
+                         f"from step 4's unsharded row")
+            for k in total:
+                total[k] += launches[k]
+            slices = [hi - lo for lo, hi in R._cell_slices(len(progs), n)]
+            rec["runs"].append({"grid": name, "shards": n,
+                                "slices": slices, "wall_s": wall,
+                                "unsharded_wall_s": e2e[name]["wall_s"],
+                                "launches": launches})
+            print(f"shard {name}: {len(rows)} cells in {n} shards "
+                  f"{slices} on cuda:0, {wall:.3f} s (step 4 unsharded "
+                  f"{e2e[name]['wall_s']:.3f} s); rows bit-equal; "
+                  f"launches {launches}", flush=True)
+    finally:
+        R._shard_devices = real
+    return rec, total
 
 
 # ---------------------------------------------------------------------------
@@ -2144,6 +2339,20 @@ TRAIN_STEPS = 10
 RESUME_ARGS = ["--arch", "stablelm-3b", "--smoke", "--steps", "6",
                "--batch", "8", "--seq", "128", "--lr", "1e-3",
                "--ckpt-every", "3", "--log-every", "3"]
+
+
+#: the ``REPRO_OPTS=remat_dots`` check rides on this arch's agreement step
+REMAT_DOTS_ARCH = "phi3-mini-3.8b"
+#: the flash gradient at the reference's ``train_4k`` length: B 1, S = T =
+#: 4096, phi3's heads (H = KV = 32, hd 96), bf16, causal; the plain
+#: version's query chunk
+FLASH_4K = dict(B=1, S=4096, H=32, hd=96)
+FLASH_CHUNK = 512
+#: one query chunk's working set in the backward, in f32 logits-sized
+#: buffers (chunk x T x H x 4 bytes): the logits and their softmax, the
+#: softmax's gradient and its input's, and the bf16 probabilities and
+#: their gradient (two halves)
+FLASH_CHUNK_BUFFERS = 5
 
 
 #: ``launch.train``'s log line of a step
@@ -2249,7 +2458,149 @@ def check_train_agreement(device, arch: str, seq: int, kernels) -> tuple:
         if not got <= tol:
             fail(f"train agreement {arch}: {key} card vs CPU {got:.3e} "
                  f"exceeds {tol}")
-    del on_card, grads
+    if arch == REMAT_DOTS_ARCH:
+        card_batch = {k: v.to(device) for k, v in batch.items()}
+        del grads
+        rec["remat_dots"], n = check_remat_dots(cfg, on_card, card_batch,
+                                                kernels)
+        launches = {k: launches[k] + n[k] for k in launches}
+    del on_card
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def check_remat_dots(cfg, params, batch, kernels) -> tuple:
+    """One training loss and gradient of the agreement's model on the
+    card with the full group remat and with ``REPRO_OPTS=remat_dots``
+    (the checkpoint keeps the unbatched products' outputs): the loss and
+    every gradient leaf bit-equal.  Both run under deterministic
+    algorithms: the embedding's index backward otherwise accumulates with
+    atomics, in another order each run.  -> (record, launches of
+    ``kernels`` in the remat_dots run)."""
+    import os
+    import warnings
+    old = os.environ.get("REPRO_OPTS")
+    runs = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for opts in ("", "remat_dots"):
+            os.environ["REPRO_OPTS"] = opts
+            for k in kernels:
+                k.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                loss, _, grads = train_loss_and_grads(cfg, params, batch)
+            torch.cuda.synchronize()
+            runs[opts] = (loss, grads, time.perf_counter() - t0,
+                          {k.__name__: k.launches for k in kernels})
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if old is None:
+            os.environ.pop("REPRO_OPTS", None)
+        else:
+            os.environ["REPRO_OPTS"] = old
+    (loss, grads, full_s, _), (dloss, dgrads, dots_s, n) = \
+        runs[""], runs["remat_dots"]
+    if dloss != loss:
+        fail(f"remat_dots: loss {dloss!r} vs the full remat's {loss!r}")
+    differ = [p for p in grads if not torch.equal(dgrads[p], grads[p])]
+    if differ:
+        fail(f"remat_dots: {len(differ)} gradient leaves differ from the "
+             f"full remat's, first {'/'.join(differ[0])}")
+    kernel = train_kernel(cfg)
+    if n[kernel] != 2 * cfg.num_layers:
+        fail(f"remat_dots: {kernel} launched {n[kernel]} times, expected "
+             f"{2 * cfg.num_layers} (forward and recompute)")
+    print(f"remat_dots {cfg.name} ({cfg.num_layers} layers, f32, "
+          f"deterministic): loss {dloss:.7f} and {len(grads)} gradient "
+          f"leaves bit-equal to the full remat's; {dots_s:.3f} s against "
+          f"{full_s:.3f} s; launches {n}", flush=True)
+    return {"loss": dloss, "leaves": len(grads), "full_remat_s": full_s,
+            "remat_dots_s": dots_s, "launches": n}, n
+
+
+def unchecked_flash(q, k, v):
+    """The oracle: the plain ``flash_attention`` as it was before each
+    query chunk ran under a checkpoint (autograd keeps every chunk's
+    logits and probabilities)."""
+    from repro_torch.kernels import ref
+    return torch.cat([ref.naive_attention(q[:, i:i + FLASH_CHUNK], k, v,
+                                          causal=True, q_offset=i)
+                      for i in range(0, q.shape[1], FLASH_CHUNK)], dim=1)
+
+
+def check_flash_4k(device, kernels) -> tuple:
+    """``FlashAttentionFn`` at ``FLASH_4K`` (the kernel forward, the
+    checkpointed plain backward) against autograd of ``unchecked_flash``:
+    the q, k, v gradients bit-equal; the bytes each keeps from its
+    forward for the backward and its peak above the inputs across the
+    backward (``torch.cuda.max_memory_allocated``).  The repaired path
+    keeps at most one chunk's logits plus the inputs and the output, and
+    peaks under the output, the gradients and one chunk's working set
+    (``FLASH_CHUNK_BUFFERS``).  -> (record, launches of ``kernels``)."""
+    from repro_torch.kernels import ops
+    B, S, H, hd = (FLASH_4K[k] for k in ("B", "S", "H", "hd"))
+    g = np.random.default_rng(S)
+    q, k, v, up = (torch.from_numpy(g.standard_normal((B, S, H, hd))
+                                    .astype(np.float32))
+                   .to(device).to(torch.bfloat16) for _ in range(4))
+    one = q.numel() * q.element_size()          # a (B, S, H, hd) tensor
+    chunk_logits = B * FLASH_CHUNK * S * H * 4
+    rec = {"shape": FLASH_4K, "chunk": FLASH_CHUNK, "tensor_bytes": one,
+           "chunk_logits_bytes": chunk_logits}
+    grads = {}
+    launches = {k.__name__: 0 for k in kernels}
+    for name, fn in (("repaired", ops.flash_attention),
+                     ("oracle", unchecked_flash)):
+        xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        for kk in kernels:
+            kk.launches = 0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = fn(*xs)
+        torch.cuda.synchronize()
+        kept = torch.cuda.memory_allocated() - base - one
+        torch.cuda.reset_peak_memory_stats()
+        grads[name] = torch.autograd.grad(out, xs, up)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        n = {kk.__name__: kk.launches for kk in kernels}
+        rec[name] = {"kept_bytes": kept, "peak_bytes": peak, "wall_s": wall,
+                     "launches": n}
+        if name == "repaired":
+            launches = n
+        del out, xs
+    want = {k: 0 for k in launches}
+    want["flash_attention"] = 1
+    if launches != want:
+        fail(f"flash 4k: launches {launches}, expected {want}")
+    for a, b in zip(grads["repaired"], grads["oracle"]):
+        if not torch.equal(a, b):
+            fail("flash 4k: the gradient differs from the unchecked "
+                 "plain version's")
+    kept_limit = chunk_logits + 4 * one              # + q, k, v and out
+    peak_limit = 4 * one + FLASH_CHUNK_BUFFERS * chunk_logits
+    rec.update(kept_limit=kept_limit, peak_limit=peak_limit)
+    print(f"flash 4k (B{B}, S=T={S}, H{H}, hd {hd}, bf16, causal): "
+          f"gradients bit-equal to the unchecked plain version's; kept "
+          f"for the backward {rec['repaired']['kept_bytes'] / 1e9:.4f} GB "
+          f"(oracle {rec['oracle']['kept_bytes'] / 1e9:.4f}), peak across "
+          f"the backward {rec['repaired']['peak_bytes'] / 1e9:.4f} GB "
+          f"(oracle {rec['oracle']['peak_bytes'] / 1e9:.4f}; limits "
+          f"{kept_limit / 1e9:.4f} and {peak_limit / 1e9:.4f}); "
+          f"{rec['repaired']['wall_s']:.3f} s (oracle "
+          f"{rec['oracle']['wall_s']:.3f} s)", flush=True)
+    if rec["repaired"]["kept_bytes"] > kept_limit:
+        fail(f"flash 4k: kept {rec['repaired']['kept_bytes']} B for the "
+             f"backward, over {kept_limit}")
+    if rec["repaired"]["peak_bytes"] > peak_limit:
+        fail(f"flash 4k: peak {rec['repaired']['peak_bytes']} B across the "
+             f"backward, over {peak_limit}")
+    del grads
     torch.cuda.empty_cache()
     return rec, launches
 
@@ -2348,33 +2699,51 @@ def train_resume_check(root: str) -> None:
                       "resume_s": resume_s}))
 
 
-def run_train_resume(root: Path) -> dict:
-    """``train_resume_check`` in a subprocess with
+#: the subprocesses run_steps starts, stopped when main returns
+CHILDREN: list = []
+
+
+def start_train_resume(root: Path) -> tuple:
+    """``train_resume_check`` started in a subprocess with
     ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` and
-    ``torch.use_deterministic_algorithms(True)``: without them the
+    ``torch.use_deterministic_algorithms(True)`` (without them the
     embedding's index backward accumulates with atomics, in another
-    order each run."""
+    order each run), its output in files under ``root``; it shares the
+    card with step 5's checks, which time nothing on it.
+    -> (process, its output files) for finish_train_resume."""
     import os
     code = ("import sys, torch\n"
             "torch.use_deterministic_algorithms(True)\n"
             "import chip_smoke\n"
             "chip_smoke.train_resume_check(sys.argv[1])\n")
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
-    t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-c", code, str(root)],
-                         cwd=ROOT, env=env, capture_output=True, text=True,
-                         timeout=600)
-    if out.returncode != 0:
-        fail(f"train resume check: exit {out.returncode}\n"
-             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
-    rec = json.loads(out.stdout.strip().splitlines()[-1])
-    rec["wall_s"] = time.perf_counter() - t0
+    files = (root / "stdout.txt", root / "stderr.txt")
+    with open(files[0], "w") as out, open(files[1], "w") as err:
+        proc = subprocess.Popen([sys.executable, "-c", code, str(root)],
+                                cwd=ROOT, env=env, stdout=out, stderr=err,
+                                text=True)
+    CHILDREN.append(proc)
+    return proc, files
+
+
+def finish_train_resume(started: tuple) -> dict:
+    """Waits for ``start_train_resume``'s subprocess and checks it."""
+    proc, files = started
+    t_wait = time.perf_counter()
+    code = proc.wait(timeout=600)
+    stdout, stderr = (f.read_text() for f in files)
+    if code != 0:
+        fail(f"train resume check: exit {code}\n"
+             f"{stdout[-3000:]}\n{stderr[-3000:]}")
+    rec = json.loads(stdout.strip().splitlines()[-1])
+    rec["waited_s"] = time.perf_counter() - t_wait
     print(f"train_lm (stablelm-3b-smoke, 200 steps with a resume at 60): "
           f"final loss {rec['train_lm_loss']:.4f} in "
           f"{rec['train_lm_s']:.1f} s; launch.train straight vs resumed at "
           f"step 3: {rec['resume_arrays'] - len(rec['resume_differ'])} of "
-          f"{rec['resume_arrays']} arrays bit-equal at step 6; "
-          f"{rec['wall_s']:.1f} s", flush=True)
+          f"{rec['resume_arrays']} arrays bit-equal at step 6 in "
+          f"{rec['resume_s']:.1f} s (beside step 5; waited for "
+          f"{rec['waited_s']:.1f} s)", flush=True)
     if rec["resume_differ"]:
         fail(f"train resume: arrays differ at step 6: "
              f"{rec['resume_differ'][:8]}")
@@ -2704,11 +3073,36 @@ def run_analysis(card: str, grids, chaos, vector_kernels) -> tuple:
     return out, launches
 
 
+class Laps:
+    """Host seconds of each step of ``main``: ``lap(name)`` charges the
+    time since the previous lap to ``name``."""
+
+    def __init__(self):
+        self.s, self.t = {}, time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.s[name] = self.s.get(name, 0.0) + now - self.t
+        self.t = now
+
+
 def main() -> int:
     t_start = time.perf_counter()
+    lap = Laps()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a "
              "CUDA GPU")
+    try:
+        return run_steps(t_start, lap)
+    finally:
+        for proc in CHILDREN:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def run_steps(t_start: float, lap: Laps) -> int:
+    """main's steps, after the check for a card."""
     from repro_torch.kernels import (_build, decode_attention,
                                      flash_attention, ssd_scan,
                                      vector_quantiles, vector_step)
@@ -2734,6 +3128,7 @@ def main() -> int:
     for name, log in logs.items():
         for line in ptxas_report(log):
             print(f"  {name}: {line}")
+    lap("build")
 
     device = torch.device("cuda")
     grids = build_grids()
@@ -2767,6 +3162,7 @@ def main() -> int:
         rec = check_ssd(device, *case)
         record["checks"][f"ssd_scan/{case[0]}"] = rec
         print(f"check ssd_scan {case[0]}: {json.dumps(rec)}", flush=True)
+    lap("kernel checks")
 
     # ---- main path 1, the vector grid runtime, end to end ------------------
     vector_kernels = (vector_step.scalar_scan, vector_step.batched_scan,
@@ -2787,6 +3183,7 @@ def main() -> int:
             vals = (r.mean, r.p50, r.p95, r.p99)
             if r.n <= 0 or not all(math.isfinite(v) for v in vals):
                 fail(f"{name} cell {i}: n={r.n} row {vals} not finite")
+    lap("4 grids")
 
     # ---- main path 1b, the chaos grids (control pre-pass) on the card ------
     chaos = build_chaos_grids()
@@ -2812,6 +3209,7 @@ def main() -> int:
         launches[name] += sum(n[name] for n in chaos_launches.values())
     record["chaos_launches"] = chaos_launches
     record["chaos_sim"] = check_chaos_sim()
+    lap("4b chaos")
 
     # ---- three cells of each grid against the CPU --------------------------
     for name, progs, seeds in grids + chaos:
@@ -2829,6 +3227,7 @@ def main() -> int:
         print(f"cpu parity {name}: cells {pick} match "
               f"({same} of 3 bit-identical)", flush=True)
     record["chaos_control"] = check_chaos_control(chaos)
+    lap("4, 4b CPU parity")
 
     # ---- main path 1c, the sweep layer: vector sweeps as one grid ----------
     record["sweep"], sweep_launches, fig1 = run_sweep_phase(results,
@@ -2836,14 +3235,17 @@ def main() -> int:
     for name in ("scalar_scan", "fused_quantiles"):
         launches[name] += sweep_launches[name]
     record["sweep_launches"] = sweep_launches
+    lap("4c sweep")
 
     # ---- main path 1d, the planner: surrogate and exact ladder -------------
-    record["plan"], plan_launches = run_plan_phase(vector_kernels)
+    record["plan"], plan_launches = run_plan_phase()
     for name in ("scalar_scan", "fused_quantiles"):
         launches[name] += plan_launches[name]
+    lap("4d plan")
 
     # ---- 1e, soft mode: the plain step on the card --------------------------
     record["soft"] = run_soft_phase(vector_kernels)
+    lap("4e soft")
 
     # ---- main path 1f, the result cache: warm runs launch nothing -----------
     (ROOT / "build").mkdir(exist_ok=True)
@@ -2856,14 +3258,33 @@ def main() -> int:
         shutil.rmtree(cache_root, ignore_errors=True)
     for name in ("scalar_scan", "fused_quantiles"):
         launches[name] += cache_launches[name]
+    lap("4f cache")
+
+    # ---- 4g, the shard layer: step 4's grids in slices on cuda:0 -----------
+    record["shard"], shard_launches = run_shard_phase(
+        grids, results, record["e2e"], card, vector_kernels)
+    for name, count in shard_launches.items():
+        launches[name] += count
+    lap("4g shard")
+
+    # ---- 6g's resume check starts in a subprocess beside step 5 ------------
+    resume_root = Path(tempfile.mkdtemp(prefix="chip_smoke_train.",
+                                        dir=ROOT / "build"))
+    resume = start_train_resume(resume_root)
 
     # ---- full width, reduced depth: the card against the CPU ---------------
-    record["full_width"] = check_full_width(device)
-    record["full_width_mamba"] = check_full_width(
-        device, "mamba2-1.3b", 384, MAMBA_F32_LOGIT_TOL, MAMBA_BF16_LOGIT_TOL)
-    for chk in FULL_WIDTH_CHECKS:
-        record[f"full_width_{chk['arch']}"] = check_full_width(device, **chk)
-        torch.cuda.empty_cache()
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    try:
+        ahead = draw_ahead(pool, FULL_WIDTH_CHECKS)
+        for chk in FULL_WIDTH_CHECKS:
+            drawn = ahead.pop(0)        # each model is freed after its check
+            record[f"full_width_{chk['arch']}"] = check_full_width(
+                device, **chk, model=drawn and drawn.result())
+            del drawn
+            torch.cuda.empty_cache()
+    finally:
+        pool.shutdown(cancel_futures=True)
+    lap("full width")
 
     # ---- main path 2, serving phi3-mini-3.8b at full width -----------------
     for k in all_kernels:
@@ -2877,6 +3298,7 @@ def main() -> int:
             fail(f"kernel {name} was not launched on the serving path")
     launches.update(serve_launches)
     check_attention_serving(SERVE_ARGS, record["serving"], serve_launches)
+    lap("6 serve phi3")
 
     # ---- main path 3, serving mamba2-1.3b at full width --------------------
     for k in all_kernels:
@@ -2903,6 +3325,7 @@ def main() -> int:
           f"prefill {r['prefill_ms']:.2f} ms, decode step "
           f"{r['decode_step_ms']:.2f} ms, {r['tokens_per_s']:.1f} tokens/s",
           flush=True)
+    lap("6 serve mamba2")
 
     # ---- main path 3b, serving gemma3-12b at full width and depth ----------
     for k in all_kernels:
@@ -2918,6 +3341,7 @@ def main() -> int:
         launches[k.__name__] += gemma_launches[k.__name__]
     record["serving_gemma3_launches"] = gemma_launches
     torch.cuda.empty_cache()
+    lap("6c serve gemma3")
 
     # ---- main path 3c, serving deepseek-moe-16b at full width and depth ----
     record["serving_deepseek"], ds_launches = run_measured_serving(
@@ -2926,6 +3350,7 @@ def main() -> int:
         launches[k.__name__] += ds_launches[k.__name__]
     record["serving_deepseek_launches"] = ds_launches
     torch.cuda.empty_cache()
+    lap("6d serve deepseek")
 
     # ---- main path 3d, serving llava-next-mistral-7b at full depth ---------
     record["serving_llava"], llava_launches = run_measured_serving(
@@ -2934,11 +3359,13 @@ def main() -> int:
         launches[k.__name__] += llava_launches[k.__name__]
     record["serving_llava_launches"] = llava_launches
     torch.cuda.empty_cache()
+    lap("6e serve llava")
 
     # ---- main path 3e, the jamba cut on one engine --------------------------
     record["jamba_engine"], jamba_launches = run_jamba_engine(all_kernels)
     for name in ("flash_attention", "decode_attention", "ssd_scan"):
         launches[name] += jamba_launches[name]
+    lap("6f jamba engine")
 
     # ---- main path 4, control on real phi3 replicas at full width ----------
     record["engine_control"], ec_launches = run_engine_control(
@@ -2946,6 +3373,7 @@ def main() -> int:
     for name, n in ec_launches.items():
         launches[name] += n
     record["engine_control_launches"] = ec_launches
+    lap("6b engine control")
 
     # ---- main path 5 (step 6g), training at full width ---------------------
     record["train_agreement"] = {}
@@ -2954,30 +3382,38 @@ def main() -> int:
         record["train_agreement"][arch] = rec
         for name, count in n.items():
             launches[name] += count
+    lap("6g agreement")
+    record["flash_4k"], n = check_flash_4k(device, all_kernels)
+    for name, count in n.items():
+        launches[name] += count
+    lap("6g flash 4k")
     record["training"] = {}
     for arch, seq in TRAIN_RUNS:
         rec, n = run_training(arch, seq, all_kernels)
         record["training"][arch] = rec
         for name, count in n.items():
             launches[name] += count
-    resume_root = Path(tempfile.mkdtemp(prefix="chip_smoke_train.",
-                                        dir=ROOT / "build"))
+    lap("6g training")
     try:
-        record["train_resume"] = run_train_resume(resume_root)
+        record["train_resume"] = finish_train_resume(resume)
     finally:
         shutil.rmtree(resume_root, ignore_errors=True)
+    lap("6g resume")
     record["card_twins"], twin_launches = run_card_twins(all_kernels)
     for name, count in twin_launches.items():
         launches[name] += count
+    lap("6g twins")
 
     # ---- step 7, the launch tooling on the card -----------------------------
     record["tooling"] = run_tooling(record, card)
+    lap("7 tooling")
 
     # ---- step 7b, static analysis, then check's rejections on the card ----
     record["analysis"], analysis_launches = run_analysis(
         card, grids, chaos, vector_kernels)
     for name, count in analysis_launches.items():
         launches[name] += count
+    lap("7b analysis")
 
     # ---- the kernels line ---------------------------------------------------
     src = "src/repro_torch/kernels/csrc/"
@@ -3019,7 +3455,10 @@ def main() -> int:
             fail(f"kernel {e['name']}: {e['ms']:.5f} ms reads under its "
                  f"bound {e['bound_ms']:.5f} ms")
     record["kernels"] = entries
+    record["step_s"] = lap.s
     record["wall_s"] = time.perf_counter() - t_start
+    print("steps: " + ", ".join(f"{k} {v:.1f} s" for k, v in lap.s.items()),
+          flush=True)
     print(f"chip_smoke: {record['wall_s']:.1f} s", flush=True)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

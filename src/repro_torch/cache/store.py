@@ -120,19 +120,23 @@ class ResultCache:
     def vector_sig(self, config) -> dict:
         """The bit-affecting slice of a ``repro_torch.vector.VectorConfig``:
         the slot width, the sample budget, the resolved backend, soft
-        mode (with its constants) and where the cells run: the device
-        on the torch backend, ``"host"`` on the NumPy backend (f64 on
-        the host, whatever ``device`` says).  ``max_slot_elems`` and
+        mode (with its ``tau`` and ``band_frac``) and where the cells
+        run: the device and the resolved shard count on the torch
+        backend, ``"host"`` on the NumPy backend (f64 on the host,
+        whatever ``device`` says).  The shard count is keyed though it
+        is proven bit-preserving, as the reference keys it: distinct
+        configurations key distinctly.  ``max_slot_elems`` and
         ``pipeline`` stay out: they are proven not to change bits."""
-        from repro_torch.vector.runtime import SOFT_BAND_FRAC, SOFT_TAU
         backend = config.resolve_backend()
         sig = {"dt": config.dt, "samples": config.samples,
                "backend": backend, "soft": bool(config.soft),
                "device": ("host" if backend == "numpy"
                           else device_sig(config.device))}
+        if backend == "torch":
+            sig["devices"] = config.resolve_devices()
         if config.soft:
-            sig["tau"] = SOFT_TAU
-            sig["band_frac"] = SOFT_BAND_FRAC
+            sig["tau"] = config.tau
+            sig["band_frac"] = config.band_frac
         return sig
 
     def cell_key(self, program, seed, config) -> Optional[str]:

@@ -63,6 +63,11 @@ class LogNormalProfile:
               + M * M * (1.0 - _phi(a)))
         return e1, max(e2 - e1 * e1, 0.0)
 
+    @property
+    def mean(self) -> float:
+        """Mean of the untruncated log-normal law."""
+        return self.median * math.exp(self.sigma ** 2 / 2)
+
 
 @dataclass(frozen=True)
 class FixedProfile:
@@ -77,6 +82,10 @@ class FixedProfile:
 
     def moments(self) -> tuple[float, float]:
         return float(self.value), 0.0
+
+    @property
+    def mean(self) -> float:
+        return self.value
 
 
 # The eight TailBench applications (service-time scales from the paper:
@@ -176,6 +185,23 @@ class ScalarService:
     """One request = one worker slot for ``profile``-sampled seconds."""
     profile: object
     kind: str = field(default="scalar", init=False)
+
+    def sample(self, rng) -> float:
+        return self.profile.sample(rng)
+
+    def sample_batch(self, rng, n: int):
+        return self.profile.sample_batch(rng, n)
+
+    def moments(self) -> tuple[float, float]:
+        return self.profile.moments()
+
+    @property
+    def mean(self) -> float:
+        return self.profile.mean
+
+    @property
+    def name(self) -> str:
+        return getattr(self.profile, "name", "scalar")
 
 
 @dataclass(frozen=True)

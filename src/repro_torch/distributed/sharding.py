@@ -20,8 +20,9 @@ turns such a spec into the DTensor placements (``Shard(i)`` /
 ``shard(x, *axes)``, the activation constraint of model code, returns
 ``x`` unchanged where no mesh of more than one device is active, as
 ``with_sharding_constraint`` does on a 1x1 mesh; under a larger mesh it
-raises ``NotImplementedError``: sharded execution is ROADMAP Queue A
-item 9 (multi-GPU), and the port's model code calls no ``shard`` yet.
+raises ``NotImplementedError``: sharded execution of the models is
+ROADMAP Queue A item 9b (multi-GPU), and the port's model code calls no
+``shard`` yet.
 """
 from __future__ import annotations
 
@@ -174,11 +175,11 @@ def current_mesh():
 def shard(x, *axes):
     """``x`` itself where no mesh of more than one device is active;
     under a larger mesh, ``NotImplementedError`` (ROADMAP Queue A item
-    9, multi-GPU)."""
+    9b, multi-GPU)."""
     mesh = getattr(_CTX, "mesh", None)
     if mesh is None or mesh.size == 1:
         return x
     raise NotImplementedError(
         f"shard{axes} on a {mesh.shape} mesh: sharded execution is not "
-        f"ported yet (ROADMAP Queue A item 9, multi-GPU)")
+        f"ported yet (ROADMAP Queue A item 9b, multi-GPU)")
 

@@ -31,6 +31,7 @@ from __future__ import annotations
 import functools
 
 import torch
+import torch.utils.checkpoint
 
 _BIG = 1e18
 _EPS = 1e-12
@@ -345,16 +346,32 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
                     chunk: int = 512) -> torch.Tensor:
     """Plain version of the ``flash_attention`` kernel: the reference's
     query-chunked attention (``repro.kernels.ref.chunked_attention``),
-    ``naive_attention`` over query chunks of ``chunk`` rows so the f32
-    logits stay ``chunk x T`` per head.  Unlike the reference it takes
-    any S (the last chunk may be short)."""
+    ``naive_attention`` over query chunks of ``chunk`` rows, so the f32
+    logits of one chunk, ``chunk x T`` per head, are live at a time.
+    When autograd records, each chunk runs under a non-reentrant
+    ``torch.utils.checkpoint``, as the reference's scan body runs under
+    ``jax.checkpoint``: the backward keeps the inputs and recomputes one
+    chunk's logits at a time, where it would otherwise keep every
+    chunk's (the saved set would grow as S x T).  Outputs and gradients
+    are the same bits either way.  Unlike the reference it takes any S
+    (the last chunk may be short)."""
     s = q.shape[1]
     if s <= chunk:
         return naive_attention(q, k, v, causal=causal, window=window)
-    return torch.cat([naive_attention(q[:, i:i + chunk], k, v,
-                                      causal=causal, window=window,
-                                      q_offset=i)
-                      for i in range(0, s, chunk)], dim=1)
+    records = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (q, k, v))
+    parts = []
+    for i in range(0, s, chunk):
+        qc = q[:, i:i + chunk]
+        if records:
+            parts.append(torch.utils.checkpoint.checkpoint(
+                naive_attention, qc, k, v, causal=causal, window=window,
+                q_offset=i, use_reentrant=False,
+                preserve_rng_state=False))          # no random op inside
+        else:
+            parts.append(naive_attention(qc, k, v, causal=causal,
+                                         window=window, q_offset=i))
+    return torch.cat(parts, dim=1)
 
 
 def decode_attention(q, k, v, *, lengths, key_positions=None, q_pos=None,

@@ -49,7 +49,7 @@ reference's production meshes (``"pod"`` 16x16, ``"multipod"``
 argument bytes per device only, with no ``flops``, so
 ``roofline.load_results`` skips the file as it skips the reference's
 ``--no-cost`` results; per-device FLOPs, bytes and collectives there
-are ROADMAP Queue A item 9 (multi-GPU).  ``compile_s`` is the seconds
+are ROADMAP Queue A item 9b (multi-GPU).  ``compile_s`` is the seconds
 the meta run took: the port compiles nothing.
 
 No cost mode: the reference unrolls its scanned layer groups at G=2 and

@@ -3,8 +3,10 @@ roofline delta against the recorded baseline.
 
 Copy of ``repro.launch.perf`` on the port's dry-run (``launch.dryrun``,
 on the ``meta`` device; it needs no card).  ``--opts`` sets
-``REPRO_OPTS`` for the run; the port reads one option, ``w8_experts``
-(``models/moe.py``: int8 expert banks).  The baseline is the untagged
+``REPRO_OPTS`` for the run; the port reads two options, ``w8_experts``
+(``models/moe.py``: int8 expert banks) and ``remat_dots``
+(``models/transformer.py``: the group checkpoint keeps the unbatched
+products' outputs).  The baseline is the untagged
 result of the same cell under ``launch.roofline.ARTIFACT_DIR``.
 
     python -m repro_torch.launch.perf --arch deepseek-moe-16b \

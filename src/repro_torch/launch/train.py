@@ -15,7 +15,7 @@ restart path a cluster scheduler takes after preemption).  Runs on the
 card unless ``--device cpu`` (the kernels' plain versions); weights are
 drawn from ``--seed`` on that device.  One device only: the sharding
 rules are ported (``distributed.sharding``), sharded execution is not
-(ROADMAP Queue A item 9).  An
+(ROADMAP Queue A item 9b).  An
 encoder-decoder model (whisper-small) is refused: the synthetic batch
 has no encoder input (``frames``), where the reference fails too.
 

@@ -21,6 +21,8 @@ its mixer and its FFN: ``x + xattn(xnorm(x))``.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.utils.checkpoint
 
@@ -30,6 +32,7 @@ from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import apply_mlp, apply_norm, mlp_specs, norm_specs
 from repro_torch.models.param import leaves, stack_specs, tree_map
+from repro_torch.util import opt_flags
 
 
 def _check_kind(cfg: ArchConfig, kind: str) -> None:
@@ -187,6 +190,19 @@ def apply_block_decode(cfg: ArchConfig, p: dict, kind: str, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Stack runners (a loop over groups)
 # ---------------------------------------------------------------------------
+#: ``REPRO_OPTS=remat_dots``: the group checkpoint keeps the outputs of
+#: products with no batch dimension and recomputes the rest, the
+#: counterpart of ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``.
+#: The projections (``layers.matmul``: ``torch.matmul`` of a ``[..., d]``
+#: activation by a 2-D weight) fold the leading dims into one and reach
+#: ``aten.mm`` (``aten.addmm`` where a bias add is fused); batched
+#: products, ``aten.bmm`` (the attention einsums, the MoE experts), are
+#: recomputed, as the reference recomputes its batched dots
+_REMAT_DOTS_CONTEXT = functools.partial(
+    torch.utils.checkpoint.create_selective_checkpoint_contexts,
+    [torch.ops.aten.mm.default, torch.ops.aten.addmm.default])
+
+
 def run_stack_seq(cfg: ArchConfig, groups: dict, x: torch.Tensor, *,
                   positions: torch.Tensor, moe_impl: str = "dispatch",
                   remat: bool = False, pattern=None,
@@ -196,8 +212,9 @@ def run_stack_seq(cfg: ArchConfig, groups: dict, x: torch.Tensor, *,
     blocks read ``enc_out``.  ``remat`` runs each group under
     ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the
     scan body): the backward recomputes the group's forward instead of
-    keeping its activations.  The groups are ``unbind`` views of the
-    stacked leaves, so a backward gathers each leaf's gradient with one
+    keeping its activations, all of it, or all but the unbatched
+    products' outputs under ``REPRO_OPTS=remat_dots``.  The groups are
+    ``unbind`` views of the stacked leaves, so a backward gathers each leaf's gradient with one
     ``stack`` (an indexed view would add a stack-sized zero tensor a
     group)."""
     pattern = pattern or cfg.resolved_pattern
@@ -211,11 +228,14 @@ def run_stack_seq(cfg: ArchConfig, groups: dict, x: torch.Tensor, *,
                                    enc_out=enc_out)
         return h
 
+    context_fn = _REMAT_DOTS_CONTEXT if "remat_dots" in opt_flags() \
+        else torch.utils.checkpoint.noop_context_fn
     for g in range(n_groups(groups)):
         if remat:
             x = torch.utils.checkpoint.checkpoint(
                 group_fn, x, g, use_reentrant=False,
-                preserve_rng_state=False)          # no random op inside
+                preserve_rng_state=False,          # no random op inside
+                context_fn=context_fn)
         else:
             x = group_fn(x, g)
     return x

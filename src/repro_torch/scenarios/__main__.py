@@ -24,7 +24,9 @@ the default without ``--arch``: profile-timed ``StubEngine``s, or
 ``InferenceEngine`` replicas of a model (``--arch``); retries, breakers,
 admission control and the control loop run on it as on ``sim``.  The
 vector and model runs go to the CUDA card; ``--device cpu`` runs the
-kernels' plain PyTorch versions on the CPU instead.  The report's first line
+kernels' plain PyTorch versions on the CPU instead, and
+``--vector-devices N`` shards the vector cells over N local cards (0 =
+all, the default).  The report's first line
 names the backend and where it ran (``device=host`` for ``sim`` and
 the stub engines, and for ``--vector-backend numpy``, the reference's
 f64 NumPy backend).  ``--cache`` (or ``--cache-dir DIR``) serves the
@@ -98,6 +100,9 @@ def main(argv=None) -> int:
                     help="vector backend: array backend (auto = torch, on "
                          "--device; numpy = the reference's f64 host "
                          "backend, which never touches the card)")
+    ap.add_argument("--vector-devices", type=int, default=0,
+                    help="vector backend: shard cells over N local "
+                         "devices (0 = all)")
     ap.add_argument("--duration", type=float, default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--app", default=None)
@@ -149,7 +154,8 @@ def main(argv=None) -> int:
         rt = run_scenario(sc, args.backend,
                           vector_config=VectorConfig(
                               device=args.device,
-                              backend=args.vector_backend),
+                              backend=args.vector_backend,
+                              devices=args.vector_devices),
                           cache=cache)
     elif args.arch:
         from repro_torch.scenarios.backends import \

@@ -22,8 +22,9 @@ Where the port differs from ``python -m repro.sweep``: ``--runtime``
 defaults to ``vector`` (the reference's default is ``sim``), and the
 vector grid runs on the CUDA card unless ``--device cpu`` asks for the
 kernels' plain PyTorch versions on the CPU (in place of the reference's
-``--vector-impl``/``--vector-devices``); ``--vector-backend numpy`` runs
-the reference's f64 NumPy backend on the host instead.  A
+``--vector-impl``); ``--vector-devices N`` shards the grid's cells over
+N local cards (0 = all), and ``--vector-backend numpy`` runs the
+reference's f64 NumPy backend on the host instead.  A
 ``--file`` declaration, and ``--smoke``, still mean ``sim`` where they
 name no runtime, as in the reference.  An ``optimize`` declaration runs
 the gradient planner on ``--device``.  ``--cache`` (or ``--cache-dir
@@ -207,6 +208,9 @@ def main(argv=None) -> int:
                     help="vector grid: array backend (auto = torch, on "
                          "--device; numpy = the reference's f64 host "
                          "backend)")
+    ap.add_argument("--vector-devices", type=int, default=0,
+                    help="vector grid: shard cells over N local devices "
+                         "(0 = all)")
     ap.add_argument("--out", default=OUT_DEFAULT,
                     help=f"artifact directory (default {OUT_DEFAULT})")
     ap.add_argument("--quiet", action="store_true",
@@ -259,7 +263,8 @@ def main(argv=None) -> int:
     frame = run_sweep(sweep, executor=args.executor, workers=args.workers,
                       progress=None if args.quiet else _progress,
                       vector_config=VectorConfig(
-                          device=args.device, backend=args.vector_backend),
+                          device=args.device, backend=args.vector_backend,
+                          devices=args.vector_devices),
                       cache=cache)
     json_path = os.path.join(args.out, f"{frame.name}.json")
     csv_path = os.path.join(args.out, f"{frame.name}.csv")

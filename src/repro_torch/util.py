@@ -1,8 +1,11 @@
 """Small shared utilities.
 
 Copy of ``repro.util.opt_flags``: the named options of ``REPRO_OPTS``
-(``REPRO_OPTS=a,b,c``).  The port reads one of them, ``w8_experts``
-(``models/moe.py``: int8 expert banks, dequantised at use).
+(``REPRO_OPTS=a,b,c``).  The port reads two of them: ``w8_experts``
+(``models/moe.py``: int8 expert banks, dequantised at use) and
+``remat_dots`` (``models/transformer.py``: the group checkpoint keeps
+the outputs of products with no batch dimension, ``aten.mm`` and
+``aten.addmm``, and recomputes the rest).
 """
 import os
 

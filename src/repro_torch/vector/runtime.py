@@ -16,8 +16,10 @@ queue length)`` with axes ``[cell, server]`` advances through
 * requests are sampled and censored on the host, and p50/p95/p99 of
   every cell of a chunk come from one fused quantile launch.
 
-``VectorConfig.soft`` is the reference's differentiable mode: the scan
-consts carry ``tau``, which sends the step to its plain PyTorch version
+``VectorConfig.soft`` is the reference's differentiable mode (its
+temperature ``tau`` and the quantile head's ``band_frac`` are fields of
+the config, as in the reference): the scan consts carry ``tau``, which
+sends the step to its plain PyTorch version
 with the smoothed water-fill (``kernels.ref.soft_waterfill``) on the
 grid's own device, the card included — the reference pins soft consts
 to its jnp step too, and no kernel implements them.  The host terms
@@ -29,9 +31,18 @@ slow, and meant for diagnostics.
 
 Device work is f32 (consts, carry and xs cast as the reference casts
 them; ``fail_slot`` and the slot index int32) and outputs are widened to
-f64 on the host.  Each chunk's outputs come back in one device-to-host
-copy.  Cells group into geometric (T, S) shape buckets, and chunks are
-double-buffered: chunk k+1's scan runs while the host finishes chunk k.
+f64 on the host.  Cells group into geometric (T, S) shape buckets, and
+chunks are double-buffered: chunk k+1's scan runs while the host
+finishes chunk k.
+
+``VectorConfig.devices`` lays each chunk's cell axis across local cards
+(the reference's ``shard_map`` over ``jax.local_devices()``): one
+contiguous slice a card (``_shard_devices``), each slice's inputs
+assembled and its scan launched on its card, and its outputs back in one
+device-to-host copy of its own.  Sampling and the quantile head run on
+the gathered chunk, on the first card.  Every reduction of the step runs
+over servers, so sharded rows are unsharded rows bit for bit.  Soft
+grids skip the layer.
 
 ``VectorConfig.backend="numpy"`` is the reference's NumPy backend: the
 scan runs the reference's namespace-generic step math with ``np`` in
@@ -43,6 +54,7 @@ CUDA, whatever ``device`` says.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Optional, Sequence
@@ -60,13 +72,6 @@ _BIG = 1e18
 _EPS = 1e-12
 #: offered load above which the stationary wait is diffusion-bounded
 _NEAR_CRITICAL = 0.9
-
-
-#: soft mode's temperature (relative) and its quantile head's bandwidth,
-#: as a fraction of the effective count (the reference ``VectorConfig``'s
-#: ``tau`` and ``band_frac`` defaults)
-SOFT_TAU = 0.05
-SOFT_BAND_FRAC = 5e-4
 
 
 @dataclass
@@ -93,6 +98,12 @@ class VectorConfig:
                                     # reference's "auto" probes for jax);
                                     # "numpy" is the reference's f64 host
                                     # backend and ignores ``device``
+    devices: int = 0                # cell-axis sharding: 0 = every local
+                                    # card (auto), N >= 1 pins the shard
+                                    # count (1 still runs the shard layer)
+    tau: float = 0.05               # soft-mode temperature (relative)
+    band_frac: float = 5e-4         # soft quantile-head bandwidth, as a
+                                    # fraction of the effective count
 
     def resolve_backend(self) -> str:
         """``"torch"`` or ``"numpy"``; any other name raises
@@ -103,6 +114,26 @@ class VectorConfig:
             raise ValueError(f"unknown vector backend {self.backend!r} "
                              f"(use 'auto', 'torch' or 'numpy')")
         return self.backend
+
+    def resolve_devices(self) -> int:
+        """Shards of the cell axis on the torch backend: every local card
+        for ``devices <= 0``, else ``devices`` capped at the cards there
+        (at least 1).  ``device="cpu"`` gives 1, as JAX does on one host
+        device; a card pinned by index (``"cuda:k"``) gives 1 and refuses
+        ``devices > 1``.  The NumPy backend never reads it."""
+        dev = torch.device(self.device)
+        if dev.type != "cuda":
+            return 1
+        if dev.index is not None:
+            if self.devices > 1:
+                raise ValueError(f"devices={self.devices} with "
+                                 f"device={self.device!r}: a card pinned "
+                                 f"by index holds one shard (use "
+                                 f"device='cuda' to shard over cards)")
+            return 1
+        avail = torch.cuda.device_count()
+        n = avail if self.devices <= 0 else min(self.devices, avail)
+        return max(1, n)
 
 
 # ---------------------------------------------------------------------------
@@ -453,7 +484,14 @@ def run_cells(programs: Sequence[VectorProgram],
     if not cold:
         return results  # type: ignore[return-value]
 
-    device = None if backend == "numpy" else resolve_device(cfg.device)
+    if backend == "numpy":
+        shards = None
+    else:
+        device = resolve_device(cfg.device)
+        # soft consts carry ``tau`` and run the plain step: soft grids
+        # are small, so they skip the shard layer, as the reference's do
+        shards = [device] if cfg.soft else \
+            _shard_devices(cfg, cfg.resolve_devices())
     cold_progs = [programs[i] for i in cold]
     chunks = []                     # (batched, shape, indices into cold)
     for batched, shape, idxs in _plan_groups(cold_progs):
@@ -473,7 +511,7 @@ def run_cells(programs: Sequence[VectorProgram],
     for batched, shape, part in chunks:
         state = _launch_family([cold_progs[j] for j in part],
                                [seeds[cold[j]] for j in part],
-                               batched, cfg, shape, device)
+                               batched, cfg, shape, shards)
         if not cfg.pipeline:
             finish(state, part)
             continue
@@ -535,34 +573,43 @@ def scan_inputs(progs: list, draws: list, batched: bool, shape: tuple,
     return consts, carry, xs
 
 
-def _launch_family(progs: list, seeds: list, batched: bool,
-                   cfg: VectorConfig, shape: tuple,
-                   device: torch.device) -> dict:
-    """Draw, assemble and LAUNCH one (family, shape) chunk.
+def _shard_devices(cfg: VectorConfig, n: int) -> list:
+    """The devices of an ``n``-way shard of the cell axis: the config's
+    own device for one shard, ``cuda:0 ... cuda:n-1`` beyond.  The only
+    place that chooses shard devices: tests replace it with a list that
+    repeats one device (``[cpu, cpu]``, ``[cuda:0, cuda:0]``), the
+    counterpart of XLA's forced host device count.  A shard per entry.
+    ``run_cells`` has resolved ``cfg.device`` already."""
+    if n == 1:
+        return [torch.device(cfg.device)]
+    return [torch.device("cuda", k) for k in range(n)]
 
-    On the card the scan and the device-to-host copy of its outputs are
-    queued and this returns before they complete; the host-side
-    analytic terms are computed meanwhile.  ``_finish_family`` waits."""
-    C = len(progs)
-    T, S = shape
-    dt = progs[0].dt
-    rngs = [_cell_rng(s, st) for s, st in seeds]
-    draws = [_draw_cell(p, r) for p, r in zip(progs, rngs)]
-    state = {"progs": progs, "rngs": rngs, "draws": draws,
-             "batched": batched, "cfg": cfg, "C": C, "device": device}
-    if device is None:                  # the NumPy backend
-        state["scan"] = _numpy_scan(progs, draws, batched, shape)
-    else:
-        consts, carry, xs = scan_inputs(progs, draws, batched, shape,
-                                        device)
-        if cfg.soft:
-            consts["tau"] = SOFT_TAU
-        scan = ops.batched_scan if batched else ops.scalar_scan
+
+def _cell_slices(C: int, n: int) -> list:
+    """``n`` contiguous ``(lo, hi)`` slices of ``C`` cells, the first
+    ``C % n`` one cell longer; empty slices are left out."""
+    q, r = divmod(C, n)
+    bounds = np.cumsum([0] + [q + (k < r) for k in range(n)])
+    return [(int(lo), int(hi)) for lo, hi in zip(bounds[:-1], bounds[1:])
+            if hi > lo]
+
+
+def _launch_shard(progs: list, draws: list, batched: bool,
+                  cfg: VectorConfig, shape: tuple,
+                  device: torch.device) -> dict:
+    """Assemble one shard's scan inputs on ``device``, launch its scan
+    there and queue its outputs' ONE device-to-host copy into a pinned
+    buffer of its own, with its own completion event."""
+    consts, carry, xs = scan_inputs(progs, draws, batched, shape, device)
+    if cfg.soft:
+        consts["tau"] = cfg.tau
+    scan = ops.batched_scan if batched else ops.scalar_scan
+    on_card = device.type == "cuda"
+    with torch.cuda.device(device) if on_card else contextlib.nullcontext():
         out_carry, ys = scan(consts, carry, xs)
-        # ONE device->host copy for the whole chunk
         parts = list(ys) + list(out_carry)
         flat = torch.cat([p.reshape(-1) for p in parts])
-        if device.type == "cuda":
+        if on_card:
             host = torch.empty(flat.shape, dtype=flat.dtype,
                                pin_memory=True)
             host.copy_(flat, non_blocking=True)
@@ -570,9 +617,39 @@ def _launch_family(progs: list, seeds: list, batched: bool,
             done.record()
         else:
             host, done = flat, None
-        state.update(host=host, done=done,
-                     shapes=[tuple(p.shape) for p in parts],
-                     n_ys=len(ys))
+    return {"host": host, "done": done, "n_ys": len(ys),
+            "shapes": [tuple(p.shape) for p in parts]}
+
+
+def _launch_family(progs: list, seeds: list, batched: bool,
+                   cfg: VectorConfig, shape: tuple,
+                   shards: Optional[list]) -> dict:
+    """Draw, assemble and LAUNCH one (family, shape) chunk, its cell
+    axis split into one contiguous slice per device of ``shards``
+    (``None``: the NumPy backend).
+
+    On the card each shard's scan and the device-to-host copy of its
+    outputs are queued and this returns before they complete; the
+    host-side analytic terms are computed meanwhile.  ``_finish_family``
+    waits, and samples and takes the quantiles of the gathered chunk on
+    the first shard's device.  Every reduction of the step runs over
+    servers and every cell draws from its own generator, so a sharded
+    chunk's rows are the unsharded chunk's bit for bit."""
+    C = len(progs)
+    T, S = shape
+    dt = progs[0].dt
+    rngs = [_cell_rng(s, st) for s, st in seeds]
+    draws = [_draw_cell(p, r) for p, r in zip(progs, rngs)]
+    state = {"progs": progs, "rngs": rngs, "draws": draws,
+             "batched": batched, "cfg": cfg, "C": C,
+             "device": shards[0] if shards else None}
+    if shards is None:
+        state["scan"] = _numpy_scan(progs, draws, batched, shape)
+    else:
+        state["shards"] = [
+            _launch_shard(progs[lo:hi], draws[lo:hi], batched, cfg, shape,
+                          dev)
+            for dev, (lo, hi) in zip(shards, _cell_slices(C, len(shards)))]
 
     # ---- host-side analytic aux (overlaps the launched scan) -----------
     act = np.stack([_pad(p.active, T, S) for p in progs], axis=1)
@@ -601,8 +678,8 @@ def _launch_family(progs: list, seeds: list, batched: bool,
         cmax = int(c.max()) if c.size else 1
         if cfg.soft:
             aux["pC"] = _soft.soft_erlang_c(np, c[None].astype(float),
-                                            rho_det, cmax, SOFT_TAU)
-            headroom = 1.0 - _soft.smooth_rho(np, rho_det, SOFT_TAU)
+                                            rho_det, cmax, cfg.tau)
+            headroom = 1.0 - _soft.smooth_rho(np, rho_det, cfg.tau)
         else:
             aux["pC"] = _erlang_c(c[None], lgamma_c[None], rho_det, cmax)
             headroom = 1.0 - np.clip(rho_det, 0.0, 0.999)
@@ -637,8 +714,8 @@ def _launch_family(progs: list, seeds: list, batched: bool,
         if cfg.soft:
             aux["pC_free"] = _soft.soft_erlang_c(np, c_pool, rho_pool,
                                                  int(c_pool.max()),
-                                                 SOFT_TAU)
-            headroom_f = 1.0 - _soft.smooth_rho(np, rho_pool, SOFT_TAU)
+                                                 cfg.tau)
+            headroom_f = 1.0 - _soft.smooth_rho(np, rho_pool, cfg.tau)
         else:
             aux["pC_free"] = _erlang_c(c_pool, _lgamma(c_pool), rho_pool,
                                        int(c_pool.max()))
@@ -671,18 +748,31 @@ def _launch_family(progs: list, seeds: list, batched: bool,
     return state
 
 
-def _fetch(state: dict) -> tuple:
-    """Wait for a launched chunk's copy and widen host-side to f64 ->
-    (carry, outs) as NumPy arrays."""
-    if state["done"] is not None:
-        state["done"].synchronize()
-    flat = state["host"].numpy()
+def _fetch_shard(shard: dict) -> list:
+    """Wait for one shard's copy and widen host-side to f64 -> its
+    outputs, ys then carry, as NumPy arrays."""
+    if shard["done"] is not None:
+        shard["done"].synchronize()
+    flat = shard["host"].numpy()
     arrays, off = [], 0
-    for shape in state["shapes"]:
+    for shape in shard["shapes"]:
         n = int(np.prod(shape))
         arrays.append(flat[off:off + n].reshape(shape).astype(np.float64))
         off += n
-    k = state["n_ys"]
+    return arrays
+
+
+def _fetch(state: dict) -> tuple:
+    """Wait for every shard of a launched chunk and gather their outputs
+    in cell order -> (carry, outs) as NumPy arrays (the cell axis is
+    axis 1 of a ys ``[T, C, ...]`` and axis 0 of a carry)."""
+    shards = [_fetch_shard(sh) for sh in state["shards"]]
+    k = state["shards"][0]["n_ys"]
+    if len(shards) == 1:
+        arrays = shards[0]
+    else:
+        arrays = [np.concatenate(parts, axis=1 if j < k else 0)
+                  for j, parts in enumerate(zip(*shards))]
     return tuple(arrays[k:]), tuple(arrays[:k])
 
 
@@ -698,7 +788,7 @@ def _finish_family(state: dict) -> list[VectorResult]:
     if cfg.soft:
         quants = _soft_grid_quantiles([cell["lat_all"] for cell in cells],
                                       [cell["w_all"] for cell in cells],
-                                      state["device"])
+                                      state["device"], cfg.band_frac)
     elif state["device"] is None:
         quants = _numpy_quantiles([cell["lat"] for cell in cells])
     else:
@@ -774,7 +864,7 @@ def _sample_cell(prog: VectorProgram, rng: np.random.Generator, i: int,
             u_q = rng.random(K)
             e_q = rng.standard_exponential(K)
             if cfg.soft:
-                queued = _soft.stable_sigmoid(np, (pC_i - u_q) / SOFT_TAU)
+                queued = _soft.stable_sigmoid(np, (pC_i - u_q) / cfg.tau)
             else:
                 queued = u_q < pC_i
             station = queued * e_q \
@@ -807,7 +897,7 @@ def _sample_cell(prog: VectorProgram, rng: np.random.Generator, i: int,
             lat_all = lat
             w_all = _soft.censor_weight(np, centers[ts], completion,
                                         prog.duration, fail_t,
-                                        80.0 * dt * SOFT_TAU)
+                                        80.0 * dt * cfg.tau)
         keep = (completion <= prog.duration) & (centers[ts] < fail_t) \
             & (completion <= fail_t)
         lat = lat[keep]
@@ -852,12 +942,12 @@ def _numpy_quantiles(lats: list) -> np.ndarray:
     return quantiles_partition_batched(mat, counts, (50.0, 95.0, 99.0))
 
 
-def _soft_grid_quantiles(lats: list, weights: list,
-                         device: torch.device) -> np.ndarray:
+def _soft_grid_quantiles(lats: list, weights: list, device: torch.device,
+                         band_frac: float) -> np.ndarray:
     """Soft mode's head: p50/p95/p99 of every cell's full sample under
     its censor keep-weights -> [C, 3] f64, one ``soft_quantiles`` call
     over a [C, K] f32 matrix (+inf samples at zero weight past each
-    cell's count)."""
+    cell's count), at bandwidth ``band_frac`` of the effective count."""
     mat, _ = _quantile_matrix(lats)
     if mat is None:
         return np.full((len(lats), 3), float("nan"))
@@ -866,7 +956,7 @@ def _soft_grid_quantiles(lats: list, weights: list,
         wmat[i, :w.size] = w
     out = _soft.soft_quantiles(torch.from_numpy(mat).to(device),
                                torch.from_numpy(wmat).to(device),
-                               band_frac=SOFT_BAND_FRAC)
+                               band_frac=band_frac)
     return out.cpu().numpy().astype(np.float64)
 
 

@@ -107,6 +107,79 @@ def test_flash_plain_chunks_like_chunked_oracle(dtype):
     torch.testing.assert_close(short, got[:, :80], rtol=0, atol=0)
 
 
+def _unchecked_flash(q, k, v, *, causal, window, chunk=512):
+    """The plain ``flash_attention`` as it was before each query chunk ran
+    under a checkpoint: autograd keeps every chunk's logits."""
+    return torch.cat([ref.naive_attention(q[:, i:i + chunk], k, v,
+                                          causal=causal, window=window,
+                                          q_offset=i)
+                      for i in range(0, q.shape[1], chunk)], dim=1)
+
+
+def _saved_bytes(fn):
+    """(output of ``fn()``, bytes of the distinct storages autograd
+    saves for its backward)."""
+    seen = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        seen[st.data_ptr()] = st.nbytes()
+        return t
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = fn()
+    return out, sum(seen.values())
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("window", [None, 700])
+def test_flash_plain_checkpoints_its_query_chunks(dtype, window):
+    """S = 1536, three 512-row chunks: the backward keeps at most one
+    chunk's f32 logits beside the inputs (the unchecked version keeps
+    all three chunks' logits and probabilities), and the outputs and
+    q, k, v gradients are the unchecked version's bit for bit."""
+    g = np.random.default_rng(11)
+    S, H, KV, hd = 1536, 4, 2, 16
+    arrays = (_np(g, 1, S, H, hd), _np(g, 1, S, KV, hd),
+              _np(g, 1, S, KV, hd))
+    up = _pair(_np(g, 1, S, H, hd), dtype)[1]
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    runs = {}
+    for name, fn in (("checked", ref.flash_attention),
+                     ("unchecked", _unchecked_flash)):
+        xs = [torch.from_numpy(a).to(dt).requires_grad_(True)
+              for a in arrays]
+        out, saved = _saved_bytes(
+            lambda: fn(*xs, causal=True, window=window))
+        runs[name] = (out, saved, torch.autograd.grad(out, xs, up))
+    inputs = sum(a.size for a in arrays) * (4 if dtype == "f32" else 2)
+    chunk_logits = 512 * S * H * 4
+    assert runs["checked"][1] <= chunk_logits + inputs
+    assert runs["unchecked"][1] > 3 * chunk_logits
+    assert torch.equal(runs["checked"][0], runs["unchecked"][0])
+    for a, b in zip(runs["checked"][2], runs["unchecked"][2]):
+        assert torch.equal(a, b)
+
+
+def test_flash_plain_gradient_matches_chunked_oracle():
+    """The checkpointed chunks' q, k, v gradients against ``jax.grad`` of
+    the reference's ``chunked_attention`` (its scan body under
+    ``jax.checkpoint``), f32, at the attention tolerance."""
+    g = np.random.default_rng(12)
+    S, H, KV, hd = 1536, 4, 2, 16
+    q, k, v = _np(g, 1, S, H, hd), _np(g, 1, S, KV, hd), _np(g, 1, S, KV, hd)
+    up = _np(g, 1, S, H, hd)
+
+    def jloss(a, b, c):
+        return jnp.sum(jref.chunked_attention(a, b, c, causal=True,
+                                              window=700) * up)
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    xs = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    out = ref.flash_attention(*xs, causal=True, window=700)
+    got = torch.autograd.grad(out, xs, torch.from_numpy(up))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **F32_TOL)
+
+
 def _decode_case(g, B, T, H, KV, hd, ring: bool):
     q, k, v = _np(g, B, H, hd), _np(g, B, T, KV, hd), _np(g, B, T, KV, hd)
     lengths = g.integers(1, T + 1, B).astype(np.int32)

@@ -44,6 +44,12 @@ unit-normal inputs (|y| up to ~230) the plain f32 version lies up to
 version on the card, both past 2e-4 + 2e-4|y| alone.  A state kept in
 bf16 misses this bound by an order of magnitude (chip_smoke.py's
 control).
+
+Two checks ride on the kernels here: the vector runtime's shard layer
+(``VectorConfig.devices``) with its hook replaced by repeats of
+``cuda:0``, rows bit-equal to the unsharded run; and ``FlashAttentionFn``
+at the reference's ``train_4k`` length, whose gradient is the plain
+version's without its per-chunk checkpoints, bit for bit.
 """
 from __future__ import annotations
 
@@ -605,3 +611,64 @@ def test_fig1_sweep_rows_equal_run_cells_on_the_card(cuda):
     for row, res in zip(frame.rows, cells):
         assert row.metrics == {m: getattr(res, m)
                                for m in ("n", "mean", "p50", "p95", "p99")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [2, 3])
+def test_sharded_grid_bit_equal_on_the_card(cuda, monkeypatch, n):
+    """The mixed grid of ``tests/test_torch_vector_shard.py`` with the
+    shard hook replaced by ``n`` copies of ``cuda:0``: rows bit-equal to
+    the unsharded run, one scan launch a non-empty slice and one
+    ``fused_quantiles`` launch a chunk."""
+    from repro_torch.scenarios import get
+    from repro_torch.sweep import spawn_seed
+    from repro_torch.vector import VectorConfig, compile_experiment, run_cells
+    from repro_torch.vector import runtime as vruntime
+    progs, seeds = [], []
+    for name, seed, kw, points in (
+            ("steady", 1, dict(duration=6.0), (300.0, 900.0)),
+            ("batched-serving", 2, dict(duration=8.0), (None,))):
+        for pi, qps in enumerate(points):
+            over = dict(kw, qps=qps) if qps else kw
+            prog = compile_experiment(get(name, seed=seed, **over).compile())
+            for rep in range(2):
+                progs.append(prog)
+                seeds.append((spawn_seed(seed, pi if qps else 9, rep), rep))
+
+    def _fingerprint(rows):
+        return [(r.n, r.mean, r.p50, r.p95, r.p99, r.dropped,
+                 r.samples.tobytes(), r.n_ivl.tobytes(),
+                 r.util_ivl.tobytes(), r.qdepth_ivl.tobytes())
+                for r in rows]
+    base = _fingerprint(run_cells(progs, seeds, VectorConfig(device="cuda")))
+    monkeypatch.setattr(vruntime, "_shard_devices",
+                        lambda cfg, count: [torch.device("cuda", 0)] * n)
+    counters = (vector_step.scalar_scan, vector_step.batched_scan,
+                vector_quantiles.fused_quantiles)
+    before = [k.launches for k in counters]
+    got = _fingerprint(run_cells(progs, seeds,
+                                 VectorConfig(device="cuda", devices=n)))
+    assert got == base
+    # 4 scalar cells in n slices, 2 batched cells in min(n, 2)
+    assert [k.launches - b for k, b in zip(counters, before)] == \
+        [n, 2, 2]
+
+
+@pytest.mark.gpu
+def test_flash_attention_gradient_at_train_4k(cuda):
+    """``FlashAttentionFn`` at the reference's ``train_4k`` length (B 1,
+    S = T = 4096, phi3's 32 heads of 96, bf16, causal): the gradient is
+    autograd of the plain version without checkpoints, bit for bit."""
+    g = np.random.default_rng(4096)
+    q, k, v, up = (_bf16(g, 1, 4096, 32, 96, device=cuda,
+                         dtype=torch.bfloat16) for _ in range(4))
+    xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    got = torch.autograd.grad(ops.flash_attention(*xs), xs, up)
+
+    def unchecked(a, b, c):
+        return torch.cat([ref.naive_attention(a[:, i:i + 512], b, c,
+                                              causal=True, q_offset=i)
+                          for i in range(0, 4096, 512)], dim=1)
+    want = _plain_grads(unchecked, (q, k, v), (up,))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -395,3 +395,71 @@ def test_soft_consts_take_the_plain_step_on_the_grid_device():
         assert torch.equal(g, w)
     # the smoothing moves the backlog, the hard step does not see tau
     assert not torch.equal(soft_out[1][0], hard[1][0])
+
+
+# ---------------------------------------------------------------------------
+# Soft mode's knobs: VectorConfig.tau and band_frac
+# ---------------------------------------------------------------------------
+#: temperatures and head bandwidths on either side of the defaults
+#: (0.05, 5e-4)
+KNOBS = [(0.02, 5e-4), (0.02, 2e-3), (0.2, 5e-4), (0.2, 2e-3)]
+
+
+@pytest.mark.parametrize("tau,band_frac", KNOBS)
+def test_soft_knobs_match_jax_soft_rows(tau, band_frac):
+    """``steady`` at other temperatures and bandwidths against JAX
+    ``VectorConfig(soft=True, tau=..., band_frac=...)`` rows, at the
+    default case's tolerance."""
+    name = "steady"
+    prog = jax_compile(jax_get(name, duration=AGREE_DUR[name],
+                               seed=3).compile())
+    want = jax_run_cells([prog], SEEDS, JaxConfig(
+        backend="jax", soft=True, tau=tau, band_frac=band_frac))[0]
+    port = compile_experiment(get(name, duration=AGREE_DUR[name],
+                                  seed=3).compile())
+    got = run_cells([port], SEEDS, VectorConfig(
+        device="cpu", soft=True, tau=tau, band_frac=band_frac))[0]
+    assert got.n == want.n and got.dropped == want.dropped
+    for m in ("p50", "p95", "p99", "mean"):
+        assert getattr(got, m) == pytest.approx(getattr(want, m),
+                                                rel=1e-4), m
+    # the knobs reach the rows: they move away from the defaults'
+    default = _port_rows(name)[0]
+    assert (got.p50, got.p95, got.p99) != (default.p50, default.p95,
+                                           default.p99)
+
+
+def test_soft_defaults_are_the_reference_defaults():
+    """The fields' defaults are the reference's, and a run that passes
+    them explicitly gives the same bits."""
+    assert (VectorConfig().tau, VectorConfig().band_frac) == \
+        (JaxConfig().tau, JaxConfig().band_frac) == (0.05, 5e-4)
+    prog = compile_experiment(get("steady", duration=AGREE_DUR["steady"],
+                                  seed=3).compile())
+    got = run_cells([prog], SEEDS, VectorConfig(
+        device="cpu", soft=True, tau=0.05, band_frac=5e-4))[0]
+    want = _port_rows("steady")[0]
+    assert (got.n, got.mean, got.p50, got.p95, got.p99, got.dropped,
+            got.samples.tobytes()) == \
+        (want.n, want.mean, want.p50, want.p95, want.p99, want.dropped,
+         want.samples.tobytes())
+
+
+def test_soft_knobs_change_the_cache_key():
+    """``tau`` and ``band_frac`` key a soft cell, as the reference's
+    ``tests/test_cache.py`` shows; a hard cell ignores them."""
+    from repro_torch.cache import ResultCache
+    cache = ResultCache(cache_dir=None)
+    prog = compile_experiment(get("steady", duration=2.0, seed=3).compile())
+    seed = SEEDS[0]
+
+    def key(**kw):
+        return cache.cell_key(prog, seed, VectorConfig(device="cpu", **kw))
+    base = key(soft=True)
+    assert key(soft=True, tau=0.05, band_frac=5e-4) == base
+    assert len({base, key(soft=True, tau=0.1),
+                key(soft=True, band_frac=2e-3)}) == 3
+    assert key(tau=0.1) == key(band_frac=2e-3) == key()
+    sig = cache.vector_sig(VectorConfig(device="cpu", soft=True, tau=0.1,
+                                        band_frac=2e-3))
+    assert (sig["tau"], sig["band_frac"]) == (0.1, 2e-3)

@@ -26,17 +26,21 @@ Tolerances:
   update's multiply-adds into FMAs;
 * three train steps in f32: losses within 1e-4 relative (parameters are
   not compared: Adam's first step moves a near-zero gradient by ±lr);
-* remat on against off, and the ``Function``s against autograd of the
-  plain versions: bit-equal.
+* remat on against off, ``REPRO_OPTS=remat_dots`` against the full
+  remat, and the ``Function``s against autograd of the plain versions:
+  bit-equal; ``remat_dots`` against JAX's under the same flag at the f32
+  tolerances above.
 """
 from __future__ import annotations
 
+import collections
 import functools
 import time
 
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -242,6 +246,68 @@ def test_remat_gives_the_same_gradients():
         assert la == lb
         for path in ga:
             assert torch.equal(ga[path], gb[path]), path
+
+
+class _OpCount(TorchDispatchMode):
+    """Counts the aten ops dispatched while it is active."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n[func] += 1
+        return func(*args, **(kwargs or {}))
+
+
+def _backward_ops(arch: str, tp, batch, opts: str, monkeypatch):
+    """Loss, gradients and the aten ops of the backward (the remat
+    recompute included) under ``REPRO_OPTS=opts``."""
+    monkeypatch.setenv("REPRO_OPTS", opts)
+    paths, flat = zip(*((p, t.requires_grad_(True))
+                        for p, t in P.leaves(tp)))
+    loss, _ = tstep.make_loss_fn(get_config(arch))(
+        tp, {k: torch.from_numpy(v) for k, v in batch.items()})
+    count = _OpCount()
+    with count:
+        grads = torch.autograd.grad(loss, flat)
+    return loss, dict(zip(paths, grads)), count.n
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_remat_dots_gives_the_same_gradients(arch, monkeypatch):
+    """``REPRO_OPTS=remat_dots``: the group checkpoint keeps the
+    unbatched products' outputs, so the backward's recompute runs fewer
+    ``aten.mm`` (and the same ``aten.bmm``); loss and every gradient leaf
+    are the full remat's bit for bit."""
+    jp = _jax_params(arch, "f32")
+    batch = _batch(arch, batch=2, seq=64)
+    la, ga, na = _backward_ops(arch, _port(jp), batch, "", monkeypatch)
+    lb, gb, nb = _backward_ops(arch, _port(jp), batch, "remat_dots",
+                               monkeypatch)
+    assert torch.equal(la, lb)
+    for path in ga:
+        assert torch.equal(ga[path], gb[path]), path
+    mm, bmm = torch.ops.aten.mm.default, torch.ops.aten.bmm.default
+    assert nb[mm] < na[mm]
+    assert nb[bmm] == na[bmm]
+
+
+def test_remat_dots_loss_matches_reference(monkeypatch):
+    """JAX's loss and gradient under ``REPRO_OPTS=remat_dots`` (its
+    ``dots_with_no_batch_dims_saveable`` policy) against the port's, at
+    the f32 training tolerances."""
+    arch = "phi3-mini-3.8b-smoke"
+    monkeypatch.setenv("REPRO_OPTS", "remat_dots")
+    jp = _jax_params(arch, "f32")
+    batch = _batch(arch, batch=2, seq=64)
+    fn = jax.jit(jax.value_and_grad(
+        jstep.make_loss_fn(jax_config(arch), impl="ref"), has_aux=True))
+    (want, _), jgrads = fn(jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    got, grads = _port_loss_and_grads(arch, _port(jp), batch)
+    assert got == pytest.approx(float(want), rel=1e-5)
+    for path, g in grads.items():
+        assert _rel(g, _leaf(jgrads, path)) <= 1e-4, path
 
 
 def test_lm_hidden_without_remat_is_the_serving_forward():
