@@ -216,6 +216,22 @@ trains phi3-mini-3.8b and mamba2-1.3b at full width and depth:
    check-passed scenarios that steps 4 and 4b ran skip nothing; a
    ``legacy_mode`` declaration is rejected by check and refused by the
    compiler; the phase must end within ``ANALYSIS_BUDGET_S``;
+7c. runs the models sharded (``run_sharded``): four ranks, each a
+   process (``sharded_rank``) started after the kernels are built, share
+   ``cuda:0`` over a gloo group (NCCL refuses two ranks on one card) as
+   a (1, 4) mesh under the ``tp`` rules; phi3-mini-3.8b (32 heads, 8 a
+   rank), llava-next-mistral-7b's text path (32 query heads over 8 KV
+   heads: 2 KV heads a rank) and mamba2-1.3b (64 heads, 16 a rank), at
+   full width and ``SHARDED_LAYERS`` layers in f32 on weights of seed 0
+   drawn on the card, a prompt of seed 1 (128 tokens; mamba2 384, past a
+   scan chunk), prefilled and decoded ``SHARDED_STEPS`` greedy steps on
+   a cache sharded along its slots (the flash-decode across ranks); rank
+   0 runs the same model unsharded first.  Greedy tokens must be equal
+   and logits within ``SHARDED_LOGIT_TOL`` of max|logit|; each rank's
+   counters must show ``flash_attention``, ``decode_attention``'s LSE
+   output and LSE input, and ``ssd_scan``, at the per-rank shapes, and
+   each rank's first LSE output and partial are held against the plain
+   version's on the same inputs;
 8. times each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, with CUDA events (median of
    repeated runs; a scan's plain version, seconds a call, once), and
@@ -2787,6 +2803,406 @@ def run_card_twins(kernels) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# Step 7c: the models sharded over four ranks on one card
+# ---------------------------------------------------------------------------
+#: the mesh, the models (arch, prompt tokens) and their cut: 2 layers at
+#: full width in f32, 8 greedy decode steps
+SHARDED_MESH = (1, 4)
+SHARDED_CHECKS = (("phi3-mini-3.8b", 128), ("llava-next-mistral-7b", 128),
+                  ("mamba2-1.3b", 384))
+SHARDED_LAYERS = 2
+SHARDED_STEPS = 8
+#: sharded against unsharded logits, relative to max|logit|: at most
+#: max(SHARDED_LOGIT_TOL, 2 u), u how far the unsharded run's logits
+#: move with every f32 weight one ulp off (the same prompt and tokens).
+#: The ranks change only the order of f32 sums (the row-parallel
+#: products' partial sums and all-reduce, cuBLAS's tiling of a quarter of
+#: the columns, the flash-decode's partials); on the CPU's smoke models
+#: that moves the logits at most 8e-7 (tests/test_torch_sharded_models
+#: .py), but these full-width random draws amplify any f32 difference:
+#: on an H100 phi3 at 2 layers read 3.662e-4 sharded against 5.269e-4
+#: one ulp off, llava 3.918e-5 against 7.043e-5, mamba2 2.079e-4
+#: against 3.799e-4 (step 5's card against the CPU: 2.4e-4, 7.2e-4)
+SHARDED_LOGIT_TOL = 1e-4
+#: the kernel's LSE output against the plain version's, relative to
+#: max(1, max|lse|), and its f32 partials relative to max|v|
+SHARDED_LSE_TOL = 1e-5
+SHARDED_PARTIAL_TOL = 2.0 ** -7
+#: seconds the phase should take (the whole phase, ranks' start included)
+SHARDED_BUDGET_S = 45.0
+
+
+def sharded_model(arch: str, prompt_len: int) -> tuple:
+    """7c's model: ``arch`` at full width, ``SHARDED_LAYERS`` deep, its
+    weights of seed 0 drawn on the card and cast to f32; a prompt of
+    seed 1 -> (cfg, params, prompt, decode cache length)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import param as P
+    from repro_torch.models import registry as R
+    cfg = dataclasses.replace(get_config(arch), num_layers=SHARDED_LAYERS)
+    params = f32_tree(P.init_tree(R.model_specs(cfg), torch.Generator(
+        device="cuda").manual_seed(0)))
+    prompt = torch.randint(0, cfg.vocab_size, (1, prompt_len),
+                           dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(1))
+    return cfg, params, prompt.cuda(), prompt_len + SHARDED_STEPS + 32
+
+
+def sharded_greedy(cfg, params, prompt, max_len: int, forced=None) -> tuple:
+    """Prefill and ``SHARDED_STEPS`` greedy decode steps (fed ``forced``
+    tokens in place of the argmax where given) -> (logits (steps + 1, V)
+    f32 on the host, tokens); a DTensor's logits are gathered first."""
+    from repro_torch.distributed.sharding import is_dtensor
+    from repro_torch.models import registry as R
+
+    def whole(t):
+        return (t.full_tensor() if is_dtensor(t) else t)[0].float()
+    with torch.no_grad():
+        logits, cache, pos = R.prefill(cfg, params, {"tokens": prompt},
+                                       max_len)
+        outs = [whole(logits)]
+        toks = [int(outs[-1].argmax())]
+        for i in range(SHARDED_STEPS):
+            tok = torch.tensor([toks[-1] if forced is None else forced[i]],
+                               dtype=torch.int32, device=prompt.device)
+            logits, cache = R.decode_step(cfg, params, cache, tok, pos)
+            pos = pos + 1
+            outs.append(whole(logits))
+            toks.append(int(outs[-1].argmax()))
+    return torch.stack(outs).cpu(), toks
+
+
+def _ulp_off(tree, seed: int = 7):
+    """Every f32 leaf of ``tree`` moved one ulp up or down (a seeded coin
+    on the card)."""
+    from repro_torch.models.param import tree_map
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def bump(t):
+        if t.dtype != torch.float32:
+            return t
+        up = torch.rand(t.shape, generator=g, device=t.device) < 0.5
+        inf = torch.tensor(math.inf, device=t.device)
+        return torch.where(up, torch.nextafter(t, inf),
+                           torch.nextafter(t, -inf))
+    return tree_map(bump, tree)
+
+
+def _rel_steps(a, b) -> list:
+    """Each step's max|a - b| over max|b|."""
+    return [float((x - y).abs().max() / y.abs().max()) for x, y in zip(a, b)]
+
+
+class _KernelSpy:
+    """Wraps the three model kernels where ``kernels.ops`` reaches them
+    (its ``_flash``, ``_decode`` and ``_ssd`` modules): the shapes of
+    each kernel's first launch, and the first LSE output and LSE-input
+    partial of ``decode_attention`` held against the plain version on
+    the same inputs.  The launch counters stay the kernels' own."""
+
+    def __init__(self):
+        from repro_torch.kernels import decode_attention as D
+        from repro_torch.kernels import flash_attention as F
+        from repro_torch.kernels import ssd_scan as S
+        self.mods = (("_flash", F, "flash_attention"),
+                     ("_decode", D, "decode_attention"),
+                     ("_ssd", S, "ssd_scan"))
+        self.real = {name: getattr(m, name) for _, m, name in self.mods}
+        self.reset()
+
+    def reset(self) -> None:
+        self.shapes, self.errs = {}, {}
+        for k in self.real.values():
+            k.launches = 0
+        self.real["decode_attention"].lse_launches = 0
+        self.real["decode_attention"].partial_launches = 0
+
+    def counts(self) -> dict:
+        d = self.real["decode_attention"]
+        out = {k.__name__: k.launches for k in self.real.values()}
+        out.update(decode_lse=d.lse_launches,
+                   decode_partial=d.partial_launches)
+        return out
+
+    def __enter__(self):
+        from repro_torch.kernels import ref
+
+        def flash(q, k, v, **kw):
+            self.shapes.setdefault("flash_attention", [list(q.shape),
+                                                       list(k.shape)])
+            return self.real["flash_attention"](q, k, v, **kw)
+
+        def decode(q, k, v, **kw):
+            out = self.real["decode_attention"](q, k, v, **kw)
+            key = ("decode_lse" if kw.get("lse_only") else "decode_partial"
+                   if kw.get("lse") is not None else "decode")
+            if key not in self.shapes:
+                self.shapes[key] = [list(q.shape), list(k.shape)]
+                if key != "decode":
+                    plain = ref.decode_attention(q, k, v, **kw)
+                    scale = (max(1.0, float(plain.abs().max()))
+                             if key == "decode_lse"
+                             else float(v.float().abs().max()) or 1.0)
+                    self.errs[key] = float((out - plain).abs().max()) / scale
+            return out
+
+        def ssd(x, *a, **kw):
+            self.shapes.setdefault("ssd_scan", [list(x.shape)])
+            return self.real["ssd_scan"](x, *a, **kw)
+        import types
+
+        from repro_torch.kernels import ops
+        for (attr, _, name), fn in zip(self.mods, (flash, decode, ssd)):
+            setattr(ops, attr, types.SimpleNamespace(**{name: fn}))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        for attr, m, _ in self.mods:
+            setattr(ops, attr, m)
+
+
+#: the kernel registrations of _host_collectives (kept alive)
+_HOST_LIBS: list = []
+
+
+def _host_collectives() -> None:
+    """Four ranks on one card talk over gloo.  Its functional all-gather
+    of CUDA tensors crashes in ``wait_tensor`` (a segmentation fault
+    under torch 2.11), so the all-gather, the reduce-scatter, the
+    all-to-all and DTensor's shard move go through the host here: the
+    CUDA tensor is copied to the CPU, the same collective runs there, and
+    the result is copied back.  All-reduce keeps gloo's own CUDA path.
+    Products and kernels stay on the card."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    f = torch.ops._c10d_functional
+
+    def waited(t):
+        return f.wait_tensor(t)
+
+    def all_gather(x, group_size, group_name):
+        return waited(f.all_gather_into_tensor(x.cpu(), group_size,
+                                               group_name)).to(x.device)
+
+    def reduce_scatter(x, op, group_size, group_name):
+        return waited(f.reduce_scatter_tensor(x.cpu(), op, group_size,
+                                              group_name)).to(x.device)
+
+    def all_to_all(x, out_sizes, in_sizes, group_name):
+        return waited(f.all_to_all_single(x.cpu(), out_sizes, in_sizes,
+                                          group_name)).to(x.device)
+
+    def shard_move(x, gather_dim, shard_dim, group_name):
+        group = _resolve_process_group(group_name)
+        n = dist.get_world_size(group)
+        whole = waited(f.all_gather_into_tensor(x.cpu().contiguous(), n,
+                                                group_name))
+        whole = torch.cat(whole.chunk(n, dim=0), dim=gather_dim)
+        mine = whole.chunk(n, dim=shard_dim)[
+            dist.get_group_rank(group, dist.get_rank())]
+        return mine.contiguous().to(x.device)
+    for ns, ops in (("_c10d_functional",
+                     (("all_gather_into_tensor", all_gather),
+                      ("reduce_scatter_tensor", reduce_scatter),
+                      ("all_to_all_single", all_to_all))),
+                    ("_dtensor", (("shard_dim_alltoall", shard_move),))):
+        lib = torch.library.Library(ns, "IMPL")
+        for name, fn in ops:
+            lib.impl(name, fn, "CUDA")
+        _HOST_LIBS.append(lib)
+
+
+def sharded_rank(rank: int, port: int, out_dir: str,
+                 backend: str = "gloo") -> None:
+    """One rank of step 7c (a process of its own): every model of
+    ``SHARDED_CHECKS`` unsharded (rank 0 only) and sharded over the
+    (1, 4) mesh, over ``backend``: ``"gloo"`` with every rank on
+    ``cuda:0``, ``"nccl"`` with rank r on ``cuda:r``
+    (``scripts/sharded_nccl.py``); writes ``rank<r>.json`` to
+    ``out_dir``."""
+    import faulthandler
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import Mesh, device_mesh
+    from repro_torch.models import registry as R
+    faulthandler.enable()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    if backend == "gloo":
+        _host_collectives()
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=math.prod(SHARDED_MESH))
+    mesh = Mesh(SHARDED_MESH, ("data", "model"))
+    dm = device_mesh(mesh, "cuda")
+    prules, arules = SH.strategy_rules("tp")
+    out = {}
+    for arch, prompt_len in SHARDED_CHECKS:
+        cfg, params, prompt, max_len = sharded_model(arch, prompt_len)
+        rec = {}
+        if rank == 0:
+            t0 = time.perf_counter()
+            rec["plain_logits"], rec["plain_tokens"] = sharded_greedy(
+                cfg, params, prompt, max_len)
+            rec["plain_s"] = time.perf_counter() - t0
+            ulp, _ = sharded_greedy(cfg, _ulp_off(params), prompt, max_len,
+                                    forced=rec["plain_tokens"][:-1])
+            rec["ulp_steps"] = _rel_steps(ulp, rec["plain_logits"])
+        dparams = SH.distribute_tree(params, SH.tree_shardings(
+            R.param_axes(cfg), params, mesh, prules), dm)
+        del params
+        torch.cuda.synchronize()
+        with _KernelSpy() as spy:
+            t0 = time.perf_counter()
+            with SH.mesh_context(mesh, arules, dm):
+                logits, rec["tokens"] = sharded_greedy(cfg, dparams, prompt,
+                                                       max_len)
+            torch.cuda.synchronize()
+            rec["sharded_s"] = time.perf_counter() - t0
+            rec["launches"], rec["shapes"] = spy.counts(), spy.shapes
+            rec["errs"] = spy.errs
+        if rank == 0:
+            plain = rec.pop("plain_logits")
+            rec["max_logit"] = float(plain.abs().max())
+            rec["rel_err"] = float((logits - plain).abs().max()) / \
+                rec["max_logit"]
+            rec["rel_steps"] = _rel_steps(logits, plain)
+        del dparams
+        torch.cuda.empty_cache()
+        out[arch] = rec
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+
+
+def run_sharded(card: str, backend: str = "gloo") -> tuple:
+    """Step 7c: ``sharded_rank`` in four processes (on ``cuda:0`` over
+    gloo; one card each over NCCL), then the checks -> (record, the
+    kernels' launches summed over the ranks)."""
+    import os
+    import socket
+    t_phase = time.perf_counter()
+    out_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_sharded.",
+                                    dir=ROOT / "build"))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    n = math.prod(SHARDED_MESH)
+    procs = []
+    for r in range(n):
+        with open(out_dir / f"rank{r}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", "import sys, chip_smoke\n"
+                 "chip_smoke.sharded_rank(int(sys.argv[1]), "
+                 "int(sys.argv[2]), sys.argv[3], sys.argv[4])\n", str(r),
+                 str(port), str(out_dir), backend], cwd=ROOT,
+                env=dict(os.environ), stdout=log, stderr=subprocess.STDOUT,
+                text=True))
+    CHILDREN.extend(procs)
+    try:
+        codes = [p.wait(timeout=600) for p in procs]
+        if any(codes):
+            logs = "\n".join(f"rank {r} (exit {c}):\n" + (
+                out_dir / f"rank{r}.log").read_text()[-3000:]
+                for r, c in enumerate(codes) if c)
+            fail(f"step 7c: a rank failed\n{logs}")
+        ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+                 for r in range(n)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    record, launches = check_sharded(ranks, card)
+    record["wall_s"] = time.perf_counter() - t_phase
+    print(f"sharded: {record['wall_s']:.1f} s for the phase (budget "
+          f"{SHARDED_BUDGET_S:.0f} s)", flush=True)
+    return record, launches
+
+
+def check_sharded(ranks: list, card: str) -> tuple:
+    """7c's checks on the ranks' records -> (record, the kernels'
+    launches summed over the ranks)."""
+    from repro_torch.configs.base import get_config
+    n = len(ranks)
+    launches = {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0}
+    record = {"mesh": list(SHARDED_MESH), "models": {}}
+    for arch, prompt_len in SHARDED_CHECKS:
+        cfg = get_config(arch)
+        r0 = ranks[0][arch]
+        if r0["tokens"] != r0["plain_tokens"]:
+            fail(f"7c {arch}: sharded tokens {r0['tokens']} differ from the "
+                 f"unsharded {r0['plain_tokens']}")
+        u = max(r0["ulp_steps"])
+        bound = max(SHARDED_LOGIT_TOL, 2 * u)
+        if not r0["rel_err"] <= bound:
+            fail(f"7c {arch}: sharded logits {r0['rel_err']:.3e} of "
+                 f"max|logit| from the unsharded (steps "
+                 f"{r0['rel_steps']}), over max({SHARDED_LOGIT_TOL}, 2 x "
+                 f"{u:.3e}, the one-ulp gap)")
+        for r, rk in enumerate(ranks):
+            rec, c = rk[arch], rk[arch]["launches"]
+            if rec["tokens"] != r0["tokens"]:
+                fail(f"7c {arch}: rank {r}'s tokens differ from rank 0's")
+            shapes = rec["shapes"]
+            if cfg.mamba is not None:
+                want = cfg.mamba.n_heads(cfg.d_model) // n
+                if c["ssd_scan"] < SHARDED_LAYERS or \
+                        shapes["ssd_scan"][0][2] != want:
+                    fail(f"7c {arch} rank {r}: ssd_scan {c['ssd_scan']} "
+                         f"launches at {shapes.get('ssd_scan')}, expected "
+                         f"{want} heads a rank")
+                continue
+            h, g = cfg.num_heads // n, cfg.num_heads // cfg.num_kv_heads
+            kv = (cfg.num_kv_heads // n if cfg.num_kv_heads % n == 0
+                  else max(1, h // g))     # the KV heads of its query heads
+            hd = cfg.resolved_head_dim
+            if c["flash_attention"] < SHARDED_LAYERS or \
+                    shapes["flash_attention"][0][2] != h or \
+                    shapes["flash_attention"][1][2] != kv:
+                fail(f"7c {arch} rank {r}: flash_attention "
+                     f"{c['flash_attention']} launches at "
+                     f"{shapes.get('flash_attention')}, expected {h} query "
+                     f"and {kv} KV heads a rank")
+            steps = SHARDED_LAYERS * SHARDED_STEPS
+            if c["decode_lse"] != steps or c["decode_partial"] != steps:
+                fail(f"7c {arch} rank {r}: decode_attention LSE output "
+                     f"{c['decode_lse']} and input {c['decode_partial']} "
+                     f"launches, expected {steps} each")
+            # every query head (gathered) over this rank's quarter of the
+            # cache's slots, every KV head
+            slots = (prompt_len + SHARDED_STEPS + 32) // n
+            if shapes["decode_lse"] != [[1, cfg.num_heads, hd],
+                                        [1, slots, cfg.num_kv_heads, hd]]:
+                fail(f"7c {arch} rank {r}: decode_attention at "
+                     f"{shapes['decode_lse']}, expected every head over "
+                     f"{slots} slots")
+            if rec["errs"]["decode_lse"] > SHARDED_LSE_TOL or \
+                    rec["errs"]["decode_partial"] > SHARDED_PARTIAL_TOL:
+                fail(f"7c {arch} rank {r}: LSE against the plain version "
+                     f"{rec['errs']}")
+        for name in launches:
+            launches[name] += sum(rk[arch]["launches"][name] for rk in ranks)
+        record["models"][arch] = {
+            "tokens": r0["tokens"], "rel_err": r0["rel_err"],
+            "rel_steps": r0["rel_steps"], "ulp_steps": r0["ulp_steps"],
+            "bound": bound,
+            "max_logit": r0["max_logit"], "plain_s": r0["plain_s"],
+            "sharded_s": [rk[arch]["sharded_s"] for rk in ranks],
+            "launches": [rk[arch]["launches"] for rk in ranks],
+            "shapes": r0["shapes"], "lse_errs": [rk[arch]["errs"]
+                                                 for rk in ranks]}
+        print(f"sharded {arch}: {n} ranks ({card}), tokens "
+              f"{r0['tokens']} equal to the unsharded run, logits "
+              f"{r0['rel_err']:.3e} of max|logit| (bound {bound:.3e}; the "
+              f"one-ulp gap {u:.3e}); rank 0 launches "
+              f"{r0['launches']} at {r0['shapes']}; LSE vs plain "
+              f"{[rk[arch]['errs'] for rk in ranks]}; unsharded "
+              f"{r0['plain_s']:.2f} s, sharded {r0['sharded_s']:.2f} s",
+              flush=True)
+    return record, launches
+
+
+# ---------------------------------------------------------------------------
 # Step 7: the launch tooling on the card
 # ---------------------------------------------------------------------------
 TOOLING_ARCH = "phi3-mini-3.8b"
@@ -3414,6 +3830,12 @@ def run_steps(t_start: float, lap: Laps) -> int:
     for name, count in analysis_launches.items():
         launches[name] += count
     lap("7b analysis")
+
+    # ---- step 7c, the models sharded over four ranks on the card ----------
+    record["sharded"], sharded_launches = run_sharded(card)
+    for name, count in sharded_launches.items():
+        launches[name] += count
+    lap("7c sharded")
 
     # ---- the kernels line ---------------------------------------------------
     src = "src/repro_torch/kernels/csrc/"

@@ -44,6 +44,18 @@
 //   C. combine: a thread per output element sums its partials in split
 //      order and rounds once to bf16.  p is already normalised, so this
 //      is a plain sum: no rescale, the same result on every run.
+// Two modes serve a decode whose cache is sharded along its slots across
+// ranks (a flash-decode across ranks, in two rounds around one exchange):
+//   lse_mode 1 (the LSE output): A, then B folds (m_i, l_i) and its
+//      first split's block writes each head's log-sum-exp m + log l of
+//      this rank's slots (f32 [B, H]); no P.V, no output, no C;
+//   lse_mode 2 (the LSE input): the ranks' log-sum-exps combined into the
+//      row's L are given; B normalises with it, p = exp(s - L) (m = L,
+//      l = 1, no fold), so every rank rounds the same globally normalised
+//      p to bf16 as one device would, and the output is this rank's f32
+//      partial P.V (B or C write f32, not rounded): the ranks sum their
+//      partials and round once.  L > -1e30 exactly when the row has a
+//      valid key on some rank, so a rank without one adds zeros.
 // Where hd % 8 != 0 or a pointer is not 16-byte aligned, the same kernels
 // run with 2-byte element loads (W = 1).
 //
@@ -320,8 +332,9 @@ decode_pv_kernel(const __nv_bfloat16* __restrict__ v,
                  const int* __restrict__ kpos,
                  const int* __restrict__ qpos, const float* logits,
                  const float2* ml, float* part,
-                 __nv_bfloat16* __restrict__ out, int T, int H, int KV,
-                 int hd, int window, int block_t, int n_split) {
+                 __nv_bfloat16* __restrict__ out, float* __restrict__ out32,
+                 float* lse, int lse_mode, int T, int H, int KV, int hd,
+                 int window, int block_t, int n_split) {
   constexpr int kCPT = W == 8 ? 1 : 2;    // head_dim chunks per thread
   constexpr int UB = 4;                   // value rows per thread in flight
   extern __shared__ __align__(16) float red[];   // [KG][G * hd]
@@ -359,10 +372,15 @@ decode_pv_kernel(const __nv_bfloat16* __restrict__ v,
 
   // launch A's logits and (m_i, l_i) are complete and visible
   asm volatile("griddepcontrol.wait;" ::: "memory");
+  if (lse_mode == 1 && split != 0) return;   // one block a head group
+  if (lse_mode == 2 && tid < G) {            // the rows' L is given
+    m_s[tid] = lse[head0 + tid];
+    l_s[tid] = 1.f;
+  }
   // m = max_i m_i and l = sum_i l_i exp(m_i - m) in split order, the
   // same in every block: a warp per head, its lanes load 32 splits at
   // once, and the terms are added in order through shuffles
-  for (int g = warp; g < G; g += kWarps) {
+  for (int g = warp; g < (lse_mode == 2 ? 0 : G); g += kWarps) {
     const float2* r = ml + (head0 + g) * n_split;
     const float2 e0 = lane < n_split ? __ldcg(r + lane)
                                      : make_float2(-INFINITY, 0.f);
@@ -386,6 +404,11 @@ decode_pv_kernel(const __nv_bfloat16* __restrict__ v,
       m_s[g] = m;
       l_s[g] = l;                   // >= 1: the max term is exp(0)
     }
+  }
+  if (lse_mode == 1) {
+    __syncthreads();
+    if (tid < G) lse[head0 + tid] = m_s[tid] + logf(l_s[tid]);
+    return;
   }
   bool any_valid = true;
   for (int tile = t0; tile < t1; tile += kBT) {
@@ -457,7 +480,9 @@ decode_pv_kernel(const __nv_bfloat16* __restrict__ v,
     float s = 0.f;
     for (int r = 0; r < KG; ++r) s += red[(size_t)r * GH + i];
     const int g = i / hd, d = i - g * hd;
-    if (n_split == 1)
+    if (n_split == 1 && out32 != nullptr)
+      out32[head0 * hd + i] = s;
+    else if (n_split == 1)
       out[head0 * hd + i] = __float2bfloat16(s);
     else
       part[((head0 + g) * n_split + split) * hd + d] = s;
@@ -468,7 +493,8 @@ decode_pv_kernel(const __nv_bfloat16* __restrict__ v,
 // a thread per output element, 8 partials in flight.
 __global__ void __launch_bounds__(kThreads)
 decode_combine_kernel(const float* part, __nv_bfloat16* __restrict__ out,
-                      int n_out, int hd, int n_split) {
+                      float* __restrict__ out32, int n_out, int hd,
+                      int n_split) {
   asm volatile("griddepcontrol.wait;" ::: "memory");   // launch B's partials
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n_out) return;
@@ -484,15 +510,22 @@ decode_combine_kernel(const float* part, __nv_bfloat16* __restrict__ out,
     for (int u = 0; u < 8; ++u)
       if (sp + u < n_split) s += x[u];
   }
-  out[i] = __float2bfloat16(s);
+  if (out32 != nullptr)
+    out32[i] = s;
+  else
+    out[i] = __float2bfloat16(s);
 }
 
 template <typename TQ, int MAXG, int W>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
            const void* kpos, const void* qpos, void* out, void* logits,
-           void* ml, void* part, int B, int T, int H, int KV, int hd,
-           int window, float scale, int block_t, int n_split,
-           cudaStream_t stream) {
+           void* ml, void* part, void* lse, int lse_mode, int B, int T,
+           int H, int KV, int hd, int window, float scale, int block_t,
+           int n_split, cudaStream_t stream) {
+  // lse_mode 2 writes an f32 output
+  __nv_bfloat16* out16 =
+      lse_mode == 2 ? nullptr : static_cast<__nv_bfloat16*>(out);
+  float* out32 = lse_mode == 2 ? static_cast<float*>(out) : nullptr;
   const dim3 grid(KV, B, n_split);
   const int* len = static_cast<const int*>(lengths);
   const int* kp = static_cast<const int*>(kpos);
@@ -517,16 +550,15 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
       &b_cfg.cfg, decode_pv_kernel<MAXG, W>,
       static_cast<const __nv_bfloat16*>(v), len, kp, qp,
       static_cast<const float*>(logits), static_cast<const float2*>(ml),
-      static_cast<float*>(part), static_cast<__nv_bfloat16*>(out), T, H, KV,
-      hd, window, block_t, n_split);
-  if (err != cudaSuccess || n_split == 1) return (int)err;
+      static_cast<float*>(part), out16, out32, static_cast<float*>(lse),
+      lse_mode, T, H, KV, hd, window, block_t, n_split);
+  if (err != cudaSuccess || n_split == 1 || lse_mode == 1) return (int)err;
   const int n_out = B * H * hd;
   PdlConfig c_cfg(dim3((n_out + kThreads - 1) / kThreads), kThreads, 0,
                   stream);
   err = cudaLaunchKernelEx(&c_cfg.cfg, decode_combine_kernel,
-                           static_cast<const float*>(part),
-                           static_cast<__nv_bfloat16*>(out), n_out, hd,
-                           n_split);
+                           static_cast<const float*>(part), out16, out32,
+                           n_out, hd, n_split);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -534,13 +566,13 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
 template <typename TQ, int W>
 int dispatch(int G, const void* q, const void* k, const void* v,
              const void* lengths, const void* kpos, const void* qpos,
-             void* out, void* logits, void* ml, void* part, int B, int T,
-             int H, int KV, int hd, int window, float scale, int block_t,
-             int n_split, cudaStream_t st) {
+             void* out, void* logits, void* ml, void* part, void* lse,
+             int lse_mode, int B, int T, int H, int KV, int hd, int window,
+             float scale, int block_t, int n_split, cudaStream_t st) {
 #define DECODE_LAUNCH(MG)                                                     \
   return launch<TQ, MG, W>(q, k, v, lengths, kpos, qpos, out, logits, ml,     \
-                           part, B, T, H, KV, hd, window, scale, block_t,     \
-                           n_split, st)
+                           part, lse, lse_mode, B, T, H, KV, hd, window,      \
+                           scale, block_t, n_split, st)
   if (G == 1) DECODE_LAUNCH(1);
   if (G <= 2) DECODE_LAUNCH(2);
   if (G <= 4) DECODE_LAUNCH(4);
@@ -557,18 +589,24 @@ int dispatch(int G, const void* q, const void* k, const void* v,
 // n_split] float2 (m_i, l_i), part [B, H, n_split, hd] f32 (unused when
 // n_split = 1); all contiguous device pointers, ml 8-byte aligned.
 // n_split = ceil(T / block_t).  window 0 = none; scale multiplies the
-// f32 logits; `stream` is a cudaStream_t.  Needs H / KV <= 16, hd <= 256,
-// n_split <= 65535 and B * H * hd < 2^31.  Returns the first CUDA error
-// of the launches, else 0: every launch was accepted.
+// f32 logits; `stream` is a cudaStream_t.  lse_mode 0: lse unused;
+// 1: lse [B, H] f32 receives each head's log-sum-exp of the scaled,
+// masked logits and out is unused; 2: lse [B, H] f32 holds the rows' L,
+// and out [B, H, hd] is f32, the unrounded sum of bf16(exp(s - L)) v.
+// Needs H / KV <= 16, hd <= 256, n_split <= 65535 and B * H * hd < 2^31.
+// Returns the first CUDA error of the launches, else 0: every launch was
+// accepted.
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 const void* lengths, const void* kpos,
                                 const void* qpos, void* out, void* logits,
                                 void* ml, void* part, int B, int T, int H,
                                 int KV, int hd, int window, float scale,
-                                int q_f32, int block_t, void* stream) {
+                                int q_f32, int block_t, void* lse,
+                                int lse_mode, void* stream) {
   if (B < 1 || T < 1 || KV < 1 || H < KV || H % KV != 0 ||
       H / KV > kMaxG || hd < 1 || hd > kMaxHd || window < 0 ||
-      B > 65535 || block_t < 1 || (long long)B * H * hd >= (1LL << 31))
+      B > 65535 || block_t < 1 || (long long)B * H * hd >= (1LL << 31) ||
+      lse_mode < 0 || lse_mode > 2 || (lse_mode != 0 && lse == nullptr))
     return (int)cudaErrorInvalidValue;
   const int n_split = (T + block_t - 1) / block_t;
   if (n_split > 65535) return (int)cudaErrorInvalidValue;
@@ -578,8 +616,8 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
       ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) &
        15) == 0;
 #define DECODE_ARGS                                                           \
-  G, q, k, v, lengths, kpos, qpos, out, logits, ml, part, B, T, H, KV, hd,    \
-      window, scale, block_t, n_split, st
+  G, q, k, v, lengths, kpos, qpos, out, logits, ml, part, lse, lse_mode, B, \
+      T, H, KV, hd, window, scale, block_t, n_split, st
   if (q_f32)
     return vec ? dispatch<float, 8>(DECODE_ARGS)
                : dispatch<float, 1>(DECODE_ARGS);

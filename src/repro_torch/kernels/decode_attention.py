@@ -59,20 +59,28 @@ def _sm_count(index: int) -> int:
 def _entry():
     fn = _build.load("decode_attention").decode_attention
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      lengths: torch.Tensor, key_positions=None, q_pos=None,
-                     window=None, block_t=None) -> torch.Tensor:
+                     window=None, block_t=None, lse_only: bool = False,
+                     lse=None) -> torch.Tensor:
     """``q (B, H, hd)`` bf16 or f32, ``k, v (B, T, KV, hd)`` bf16,
     contiguous, on the card; ``lengths (B,)``, ``key_positions (B, T)``
     (default ``arange(T)``), ``q_pos (B,)`` (default ``lengths - 1``),
     integer; ``block_t`` cache slots per split (default
     ``default_block_t``; any ``>= 1``, the last split may be shorter) ->
-    ``(B, H, hd)`` bf16 (v's dtype)."""
+    ``(B, H, hd)`` bf16 (v's dtype).  The two rounds of a flash-decode
+    across ranks (``kernels.ops``): ``lse_only`` -> ``(B, H)`` f32, each
+    head's log-sum-exp of its scaled, masked logits over these slots (no
+    output); ``lse (B, H)`` f32, the rows' log-sum-exp over every rank's
+    slots -> ``(B, H, hd)`` f32, the unrounded sum of ``bf16(exp(s -
+    lse)) v`` over these slots.  Without either the launches are those
+    of a plain call, bit for bit."""
     if q.dim() != 3 or k.dim() != 4:
         raise ValueError(f"expected q (B, H, hd) and k (B, T, KV, hd), got "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
@@ -109,7 +117,16 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(key_positions, "key_positions", torch.int32, (B, T))
     _check(q_pos, "q_pos", torch.int32, (B,))
     win = check_window(window)
-    out = torch.empty((B, H, hd), dtype=torch.bfloat16, device=dev)
+    if lse_only and lse is not None:
+        raise ValueError("lse_only and lse exclude each other")
+    mode = 1 if lse_only else 2 if lse is not None else 0
+    if mode == 1:
+        lse = torch.empty((B, H), dtype=torch.float32, device=dev)
+    elif mode == 2:
+        _check(lse, "lse", torch.float32, (B, H))
+    out = torch.empty((B, H, hd), device=dev, dtype=(
+        torch.float32 if mode == 2 else torch.bfloat16)) if mode != 1 \
+        else lse
     # one f32 scratch: logits (B, H, T), (m, l) (B, H, n_split, 2), the
     # partials (B, H, n_split, hd) when n_split > 1; (m, l) 16-byte aligned
     n_logits = -(-B * H * T // 4) * 4
@@ -125,12 +142,23 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       lengths.data_ptr(), key_positions.data_ptr(),
                       q_pos.data_ptr(), out.data_ptr(), logits, ml,
                       ml + 4 * n_ml, B, T, H, KV, hd, win, hd ** -0.5,
-                      int(q.dtype == torch.float32), block_t, stream)
+                      int(q.dtype == torch.float32), block_t,
+                      None if lse is None else lse.data_ptr(), mode, stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention launch failed: CUDA error "
                            f"{rc}")
     decode_attention.launches += 1
+    if mode == 1:
+        decode_attention.lse_launches += 1
+        return lse
+    if mode == 2:
+        decode_attention.partial_launches += 1
     return out
 
 
 decode_attention.launches = 0
+#: of those, the launches with the LSE output (``lse_only``) and those
+#: with the LSE input (``lse``): the two rounds of a flash-decode across
+#: ranks
+decode_attention.lse_launches = 0
+decode_attention.partial_launches = 0

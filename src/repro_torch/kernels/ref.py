@@ -375,14 +375,18 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
 
 
 def decode_attention(q, k, v, *, lengths, key_positions=None, q_pos=None,
-                     window=None) -> torch.Tensor:
+                     window=None, lse_only: bool = False, lse=None):
     """Plain version of the ``decode_attention`` kernel, op for op
     ``repro.kernels.ref.decode_attention``: one query token per row.
     q ``(B, H, hd)``; k, v ``(B, T, KV, hd)``; ``lengths`` ``(B,)``;
     ``key_positions`` ``(B, T)`` absolute position of each cache slot
     (-1 = empty; default ``arange(T)``); ``q_pos`` ``(B,)`` (default
     ``lengths - 1``).  Key ``j`` counts when ``0 <= pos_j < length`` and,
-    with a window, ``pos_j > q_pos - window``."""
+    with a window, ``pos_j > q_pos - window``.  The kernel's two rounds
+    of a flash-decode across ranks: ``lse_only`` -> the f32 log-sum-exp
+    of each head's scaled, masked logits ``(B, H)`` (-1e30 where no key
+    counts); ``lse (B, H)`` given -> the f32 ``(B, H, hd)`` sum of
+    ``exp(logit - lse)`` rounded to v's dtype times v, not rounded."""
     b, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -398,6 +402,12 @@ def decode_attention(q, k, v, *, lengths, key_positions=None, q_pos=None,
         valid &= key_positions > (q_pos[:, None] - window)
     logits = torch.where(valid[:, None, None, :], logits,
                          torch.full((), NEG_INF, device=q.device))
+    if lse_only:
+        return torch.logsumexp(logits, dim=-1).reshape(b, h)
+    if lse is not None:
+        probs = torch.exp(logits - lse.reshape(b, kvh, g, 1)).to(v.dtype)
+        out = torch.einsum("bkgt,btkd->bkgd", probs.float(), v.float())
+        return out.reshape(b, h, hd)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkgt,btkd->bkgd", probs, v)
     return out.reshape(b, h, hd)

@@ -32,7 +32,11 @@ files alike):
 * ``bytes_accessed``: every aten op's operand plus result bytes,
   unfused (a view op moves none), so every intermediate is written and
   read back;
-* ``collectives``: empty (one device).
+* ``collectives``: the result bytes and count of every collective the
+  step runs, by the reference's names (``all-gather``, ``all-reduce``,
+  ``reduce-scatter``, ``all-to-all``; ``collective-permute`` where one
+  runs), as the reference's ``parse_collectives`` reads them off the
+  compiled program: empty on one device.
 
 These counts are not XLA's.  XLA's ``cost_analysis`` counts element-wise
 FLOPs too and fuses chains, so its bytes are fewer: on phi3-mini-3.8b's
@@ -43,14 +47,19 @@ holds its count to an exact sum of the step's products instead
 (``tests/test_torch_dryrun.py``).
 
 Meshes: the one-card mesh (``"card"``, 1x1) is the port's real case
-and the default; there the step runs and every key is recorded.  On the
-reference's production meshes (``"pod"`` 16x16, ``"multipod"``
-2x16x16, over ``launch.mesh``'s descriptions) ``run_cell`` records the
-argument bytes per device only, with no ``flops``, so
-``roofline.load_results`` skips the file as it skips the reference's
-``--no-cost`` results; per-device FLOPs, bytes and collectives there
-are ROADMAP Queue A item 9b (multi-GPU).  ``compile_s`` is the seconds
-the meta run took: the port compiles nothing.
+and the default.  On the reference's production meshes (``"pod"``
+16x16, ``"multipod"`` 2x16x16, over ``launch.mesh``'s descriptions)
+the same step runs as ONE rank of the mesh: a one-process world over
+PyTorch's fake process group (``distributed.sharding.fake_world``),
+every argument a DTensor of ``meta`` local shards
+(``distribute_tree`` of ``build_cell``'s specs), the step under
+``mesh_context`` with the strategy's activation rules.  The counters
+read the rank's LOCAL tensors: FLOPs, bytes and the live set are per
+device, and each collective's result is tallied at its local shape.
+Where an arch's sharded step does not run, the record keeps the
+argument bytes only, with ``sharded_error`` naming the op and its
+message (the CLI prints it as a ``FAIL`` line).  ``compile_s`` is the
+seconds the meta run took: the port compiles nothing.
 
 No cost mode: the reference unrolls its scanned layer groups at G=2 and
 G=4 and extrapolates (its ``util.cost_mode``).  The port's layers run as
@@ -59,6 +68,7 @@ a Python loop, so every layer, chunk and slice is counted as it runs.
     python -m repro_torch.launch.dryrun --arch phi3-mini-3.8b --shape train_4k
     python -m repro_torch.launch.dryrun --all             # every cell, one card
     python -m repro_torch.launch.dryrun --all --both      # 16x16 and 2x16x16
+    python -m repro_torch.launch.dryrun --all --single-pod-only  # 16x16
 
 It needs no card.  Results go to ``launch.roofline.ARTIFACT_DIR``
 (``artifacts/dryrun_torch/<arch>_<shape>_<mesh>.json``).
@@ -79,10 +89,12 @@ from torch.utils.flop_counter import flop_registry
 
 from repro_torch.configs.base import (ALL_SHAPES, ArchConfig, ShapeCell,
                                       get_config, list_configs, shapes_for)
-from repro_torch.distributed.sharding import (local_shape, spec_for,
+from repro_torch.distributed.sharding import (distribute_tree, fake_world,
+                                              is_dtensor, local_shape,
+                                              mesh_context, spec_for,
                                               strategy_rules, tree_shardings)
 from repro_torch.launch import specs as S
-from repro_torch.launch.mesh import Mesh, make_production_mesh
+from repro_torch.launch.mesh import Mesh, device_mesh, make_production_mesh
 from repro_torch.launch.roofline import ARTIFACT_DIR
 from repro_torch.models import registry as R
 from repro_torch.models.param import axes_tree, leaves
@@ -169,8 +181,24 @@ def _tensors(tree) -> list:
     return []
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (this rank's tensor); a plain tensor."""
+    return t._local_tensor if is_dtensor(t) else t
+
+
 def _nbytes(t: torch.Tensor) -> int:
+    t = _local(t)
     return t.numel() * t.element_size()
+
+
+#: the reference's name of each functional collective (its HLO opcode);
+#: DTensor moves a shard from one dim to another with its own op
+COLLECTIVES = {"all_reduce": "all-reduce",
+               "all_gather_into_tensor": "all-gather",
+               "reduce_scatter_tensor": "reduce-scatter",
+               "all_to_all_single": "all-to-all",
+               "shard_dim_alltoall": "all-to-all",
+               "permute_tensor": "collective-permute"}
 
 
 def argument_bytes(args, arg_specs, mesh: Mesh) -> int:
@@ -204,7 +232,12 @@ def _signature(x):
 
 
 class _Tally(TorchDispatchMode):
-    """The counters of a meta run, one dispatch mode: FLOPs by
+    """The counters of a meta run, one dispatch mode, on the rank's local
+    tensors: an op on DTensors is handed back to DTensor
+    (``NotImplemented``), which runs it on the local shards (those
+    local ops, and the collectives a redistribution runs, come back
+    here), and DTensor's own propagation of global shapes (on fake
+    tensors) is not counted.  FLOPs by
     ``FlopCounterMode``'s formulas (``flop_registry``, each op given the
     chance to decompose first, as that mode does), operand-plus-result
     bytes of every op that moves data (not a view, nor an op whose result
@@ -230,6 +263,8 @@ class _Tally(TorchDispatchMode):
         self.peak = 0
         self.memo: dict = {}            # signature -> (flops, bytes, outs)
         self.decomposes: dict = {}      # op -> it decomposed (False: never)
+        self.coll_bytes: dict = {}      # reference name -> result bytes
+        self.coll_counts: dict = {}
 
     def _release(self, key) -> None:
         self.refs[key] -= 1
@@ -253,6 +288,21 @@ class _Tally(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if any(t.__name__ == "DTensor" for t in types):
+            return NotImplemented       # DTensor runs it on local shards
+        if torch._C._get_dispatch_mode(
+                torch._C._TorchDispatchModeKey.FAKE) is not None:
+            return func(*args, **kwargs)   # DTensor's shape propagation
+        if func.namespace in ("_c10d_functional", "_dtensor"):
+            out = func(*args, **kwargs)
+            name = COLLECTIVES.get(func._opname)
+            if name is not None:
+                self.coll_bytes[name] = (self.coll_bytes.get(name, 0.0)
+                                         + sum(_nbytes(t)
+                                               for t in _tensors(out)))
+                self.coll_counts[name] = self.coll_counts.get(name, 0) + 1
+            self._track(_tensors(out))
+            return out
         key = None
         if not (func.is_view or func._schema.is_mutable):
             try:
@@ -302,9 +352,10 @@ class _Tally(TorchDispatchMode):
 
 
 def count_step(step, args) -> dict:
-    """Run ``step(*args)`` on ``meta`` tensors under the counters ->
-    {flops, bytes_accessed, output_size_in_bytes, temp_size_in_bytes}."""
-    exclude = {t.untyped_storage()._cdata for t in _tensors(args)}
+    """Run ``step(*args)`` on ``meta`` tensors (DTensors of meta shards on
+    a mesh) under the counters -> {flops, bytes_accessed,
+    output_size_in_bytes, temp_size_in_bytes, collectives}, per device."""
+    exclude = {_local(t).untyped_storage()._cdata for t in _tensors(args)}
     tally = _Tally(exclude)
     with tally:
         out = step(*args)
@@ -312,24 +363,59 @@ def count_step(step, args) -> dict:
     return {"flops": float(tally.flops),
             "bytes_accessed": float(tally.bytes_accessed),
             "output_size_in_bytes": int(out_bytes),
-            "temp_size_in_bytes": int(tally.peak)}
+            "temp_size_in_bytes": int(tally.peak),
+            "collectives": {"bytes_by_op": dict(tally.coll_bytes),
+                            "total_bytes": float(sum(
+                                tally.coll_bytes.values())),
+                            "counts": dict(tally.coll_counts)}}
+
+
+def count_sharded_step(step, args, arg_specs, mesh: Mesh,
+                       strategy: str) -> dict:
+    """``count_step`` as one rank of ``mesh``: a fake world of the mesh's
+    size, every argument a DTensor of meta shards with its spec's
+    placements, the step under ``mesh_context`` with the strategy's
+    activation rules."""
+    with fake_world(mesh.size):
+        dm = device_mesh(mesh, "cuda")
+        dargs = tuple(distribute_tree(a, sh, dm)
+                      for a, sh in zip(args, arg_specs))
+        with mesh_context(mesh, strategy_rules(strategy)[1], dm):
+            return count_step(step, dargs)
+
+
+def _error_line(e: Exception) -> str:
+    """``sharded_error``: the exception's type and first line (DTensor
+    names the op there)."""
+    msg = str(e).strip().splitlines()
+    return f"{type(e).__name__}: {msg[0][:400] if msg else ''}"
 
 
 def dryrun_cell(cfg: ArchConfig, cell: ShapeCell, mesh: Mesh,
                 strategy: str, with_cost: bool = True) -> dict:
-    """One cell on ``mesh``: its argument bytes per device and, on a
-    one-device mesh with ``with_cost``, the meta run's counts."""
+    """One cell on ``mesh``: its argument bytes per device and, with
+    ``with_cost``, the meta run's counts per device (one rank of the
+    mesh where it has more than one device; where that run fails, the
+    argument bytes and ``sharded_error``)."""
     t0 = time.perf_counter()
     step, args, arg_specs = build_cell(cfg, cell, mesh, strategy)
     memory = {"argument_size_in_bytes": argument_bytes(args, arg_specs,
                                                        mesh)}
     result = {"memory": memory}
-    if with_cost and mesh.size == 1:
-        counts = count_step(step, args)
-        memory["output_size_in_bytes"] = counts.pop("output_size_in_bytes")
-        memory["temp_size_in_bytes"] = counts.pop("temp_size_in_bytes")
-        result.update(counts, collectives={"bytes_by_op": {},
-                                           "total_bytes": 0.0, "counts": {}})
+    if with_cost:
+        try:
+            counts = (count_step(step, args) if mesh.size == 1 else
+                      count_sharded_step(step, args, arg_specs, mesh,
+                                         strategy))
+        except Exception as e:     # recorded, never hidden: see main()
+            if mesh.size == 1:
+                raise
+            result["sharded_error"] = _error_line(e)
+        else:
+            memory["output_size_in_bytes"] = counts.pop(
+                "output_size_in_bytes")
+            memory["temp_size_in_bytes"] = counts.pop("temp_size_in_bytes")
+            result.update(counts)
     result["compile_s"] = round(time.perf_counter() - t0, 1)
     return result
 
@@ -377,10 +463,12 @@ def main(argv=None) -> None:
     ap.add_argument("--shape", default=None)
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--multipod", action="store_true",
-                    help="the 2x16x16 production mesh (memory only)")
+                    help="the 2x16x16 production mesh")
     ap.add_argument("--both", action="store_true",
                     help="the reference's two production meshes, 16x16 and "
-                         "2x16x16 (memory only)")
+                         "2x16x16")
+    ap.add_argument("--single-pod-only", action="store_true",
+                    help="the 16x16 production mesh alone")
     ap.add_argument("--strategy", default="")
     ap.add_argument("--no-cost", action="store_true",
                     help="argument bytes only, no meta run")
@@ -393,7 +481,8 @@ def main(argv=None) -> None:
         cells = [(args.arch, args.shape)]
     else:
         ap.error("give --arch and --shape, or --all")
-    meshes = (["pod", "multipod"] if args.both
+    meshes = (["pod"] if args.single_pod_only
+              else ["pod", "multipod"] if args.both
               else ["multipod"] if args.multipod else ["card"])
 
     failures = 0
@@ -405,9 +494,19 @@ def main(argv=None) -> None:
                 r = run_cell(arch, shape, strategy=args.strategy,
                              with_cost=not args.no_cost, mesh=mesh)
                 mem = r["memory"]
+                coll = r.get("collectives", {})
+                if "sharded_error" in r:
+                    failures += 1
+                    print(f"FAIL {label}: sharded step: "
+                          f"{r['sharded_error']} (argument bytes only: "
+                          f"{mem['argument_size_in_bytes'] / 2**30:.2f}GiB)",
+                          flush=True)
+                    continue
                 print(f"OK   {label}: {r['compile_s']}s "
                       f"flops={r.get('flops', -1):.3e} "
                       f"bytes={r.get('bytes_accessed', -1):.3e} "
+                      f"coll={coll.get('total_bytes', -1):.3e}B "
+                      f"{coll.get('counts', {})} "
                       f"args={mem['argument_size_in_bytes'] / 2**30:.2f}GiB "
                       f"temp={mem.get('temp_size_in_bytes', 0) / 2**30:.2f}GiB",
                       flush=True)

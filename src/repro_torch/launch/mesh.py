@@ -61,3 +61,12 @@ def make_local_mesh() -> Mesh:
 PEAK_FLOPS_BF16 = 989e12          # FLOP/s, dense (no sparsity)
 HBM_BW = 3.35e12                  # B/s
 LINK_BW = 450e9                   # B/s, NVLink 4, each direction
+
+
+def device_mesh(mesh: Mesh, device_type: str = "cuda"):
+    """The ``torch.distributed`` ``DeviceMesh`` of ``mesh`` over the open
+    process group (its size must be the group's), with the mesh's axis
+    names as its dimension names."""
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(device_type, tuple(mesh.shape),
+                            mesh_dim_names=tuple(mesh.axis_names))

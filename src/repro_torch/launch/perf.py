@@ -8,6 +8,8 @@ on the ``meta`` device; it needs no card).  ``--opts`` sets
 (``models/transformer.py``: the group checkpoint keeps the unbatched
 products' outputs).  The baseline is the untagged
 result of the same cell under ``launch.roofline.ARTIFACT_DIR``.
+``--multipod`` runs the cell as one rank of the 2x16x16 mesh, and the
+line then carries the collective term and bytes.
 
     python -m repro_torch.launch.perf --arch deepseek-moe-16b \
         --shape decode_32k --opts w8_experts --tag w8
@@ -40,7 +42,9 @@ def main(argv=None) -> None:
     if "flops" not in r:
         print(f"[{args.tag}] {r['compile_s']}s "
               f"temp={mem.get('temp_size_in_bytes', 0) / 2**30:.1f}GiB "
-              f"args={mem['argument_size_in_bytes'] / 2**30:.1f}GiB")
+              f"args={mem['argument_size_in_bytes'] / 2**30:.1f}GiB"
+              + (f" sharded_error={r['sharded_error']}"
+                 if "sharded_error" in r else ""))
         return
     a = analyze(r)
     base_path = os.path.join(
@@ -49,6 +53,7 @@ def main(argv=None) -> None:
     print(f"[{args.tag}] compute={a.compute_s:.3e}s memory={a.memory_s:.3e}s "
           f"collective={a.collective_s:.3e}s dominant={a.dominant} "
           f"bound={a.bound_s:.3e}s roofline={a.roofline_fraction:.3f} "
+          f"coll={r['collectives']['total_bytes']:.3e}B "
           f"temp={mem['temp_size_in_bytes'] / 2**30:.1f}GiB")
     if os.path.exists(base_path):
         with open(base_path) as f:

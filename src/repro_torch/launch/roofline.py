@@ -8,8 +8,9 @@ shape) from ``launch.dryrun``'s counts (per device):
   collective = wire bytes / 450e9        (NVLink 4, one direction)
 
 The figures are ``launch.mesh``'s datasheet peaks.  Wire bytes apply
-ring-collective factors to the collectives' result bytes (empty on the
-one-card mesh, the only mesh the dry-run counts FLOPs on).
+ring-collective factors to the collectives' result bytes, which the
+dry-run tallies per device on the production meshes (empty on the
+one-card mesh).
 
 MODEL_FLOPS = 6*N*D (train), 2*N*D (prefill), 2*N_active*B (decode) —
 the "useful" work the counted FLOPs are judged against; ``ideal_s`` is
@@ -19,8 +20,11 @@ the larger of the useful FLOPs at peak and one read of the arguments
 Results are read from ``ARTIFACT_DIR`` (``artifacts/dryrun_torch/``,
 apart from the reference's ``artifacts/dryrun/``): ``load_results()``
 reads the one-card files (``*_card.json``), ``load_results(True)`` the
-2x16x16 ones; a file without ``flops`` (a production mesh's, which
-records memory only) is skipped.
+2x16x16 ones and ``load_results(mesh="pod")`` the 16x16 ones; a file
+without ``flops`` (a memory-only record: ``--no-cost``, or a production
+mesh's whose sharded step failed, ``sharded_error``) is skipped.
+
+    python -m repro_torch.launch.roofline [card|pod|multipod]
 """
 from __future__ import annotations
 
@@ -145,8 +149,8 @@ def analyze(result: dict) -> Roofline:
     )
 
 
-def load_results(multi_pod: bool = False) -> list[dict]:
-    tag = "multipod" if multi_pod else "card"
+def load_results(multi_pod: bool = False, mesh: str = "") -> list[dict]:
+    tag = mesh or ("multipod" if multi_pod else "card")
     out = []
     if not os.path.isdir(ARTIFACT_DIR):
         return out
@@ -159,10 +163,10 @@ def load_results(multi_pod: bool = False) -> list[dict]:
     return out
 
 
-def table(multi_pod: bool = False) -> str:
+def table(multi_pod: bool = False, mesh: str = "") -> str:
     rows = ["arch,shape,compute_s,memory_s,collective_s,dominant,"
             "model_flops,hlo_flops,useful_ratio,roofline_fraction"]
-    for r in load_results(multi_pod):
+    for r in load_results(multi_pod, mesh):
         a = analyze(r)
         rows.append(
             f"{a.arch},{a.shape},{a.compute_s:.4e},{a.memory_s:.4e},"
@@ -202,4 +206,5 @@ def decode_step_time(arch: str, shape: str = "decode_32k") -> float:
 
 
 if __name__ == "__main__":
-    print(table(multi_pod=False))
+    import sys
+    print(table(mesh=sys.argv[1] if len(sys.argv) > 1 else ""))

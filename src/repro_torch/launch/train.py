@@ -13,9 +13,10 @@ Twin of ``repro.launch.train``:
 --resume restores params/opt/data state from the latest checkpoint (the
 restart path a cluster scheduler takes after preemption).  Runs on the
 card unless ``--device cpu`` (the kernels' plain versions); weights are
-drawn from ``--seed`` on that device.  One device only: the sharding
-rules are ported (``distributed.sharding``), sharded execution is not
-(ROADMAP Queue A item 9b).  An
+drawn from ``--seed`` on that device.  One device only, as the
+reference's launcher (which imports the mesh helpers but builds no
+mesh); a sharded train step is ``make_train_step`` on DTensors under
+``distributed.sharding.mesh_context``.  An
 encoder-decoder model (whisper-small) is refused: the synthetic batch
 has no encoder input (``frames``), where the reference fails too.
 

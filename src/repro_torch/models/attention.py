@@ -11,7 +11,14 @@ no RoPE and no qk-norm.
 
 The decode cache is updated in place: ``decode_self_attention`` writes
 the new token's K/V and position into the cache it is given (the JAX
-engine donates the cache to its jitted decode instead).
+engine donates the cache to its jitted decode instead).  A cache that is
+a DTensor sharded along its slots (``kv_seq``) is written on each rank's
+local slice, only the slots that slice holds.
+
+Under a mesh (``distributed.sharding.mesh_context``) the layout
+constraints sit where the reference's do: q, k and the attention output
+over (batch, res_seq, heads), the updated cache over (batch, kv_seq,
+kv_heads).
 """
 from __future__ import annotations
 
@@ -20,6 +27,8 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import (is_dtensor, mesh_chunk, shard,
+                                              to_local_as)
 from repro_torch.kernels import ops
 from repro_torch.models.layers import matmul, rms_norm, rope
 from repro_torch.models.param import Spec
@@ -89,7 +98,10 @@ def self_attention(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
     q, k, v = _proj_qkv(cfg, p, x)
     q = rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
     k = rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+    q = shard(q, "batch", "res_seq", "heads", "head_dim")
+    k = shard(k, "batch", "res_seq", "kv_heads", "head_dim")
     o = ops.flash_attention(q, k, v, causal=causal, window=window)
+    o = shard(o, "batch", "res_seq", "heads", "head_dim")
     return _out_proj(p, o), k, v
 
 
@@ -121,14 +133,49 @@ def decode_self_attention(cfg: ArchConfig, p: dict, x: torch.Tensor,
     v = v[:, 0]
     size = cache["k"].shape[1]
     slot = (positions % size).long()     # ring for SWA, identity for full
-    bidx = torch.arange(b, device=x.device)
-    cache["k"][bidx, slot] = k.to(cache["k"].dtype)
-    cache["v"][bidx, slot] = v.to(cache["v"].dtype)
-    cache["pos"][bidx, slot] = positions.to(cache["pos"].dtype)
+    _write_slots(cache["k"], slot, k)
+    _write_slots(cache["v"], slot, v)
+    _write_slots(cache["pos"], slot, positions)
+    for name in ("k", "v"):
+        cache[name] = shard(cache[name], "batch", "kv_seq", "kv_heads",
+                            "head_dim")
     o = ops.decode_attention(q, cache["k"], cache["v"], lengths=lengths,
                              key_positions=cache["pos"], q_pos=positions,
                              window=window)
     return _out_proj(p, o), cache
+
+
+def _write_slots(buf: torch.Tensor, slot: torch.Tensor,
+                 value: torch.Tensor) -> None:
+    """``buf[b, slot[b]] = value[b]`` for every row ``b``, in place, in
+    ``buf``'s dtype.  A DTensor ``buf`` is written on each rank's local
+    tensor: ``value`` and ``slot`` are laid out as ``buf`` is without its
+    slot dim, and where ``buf`` is sharded along its slots a rank writes
+    only the rows whose slot it holds (the others write back what the
+    slot held: no host sync on a mask)."""
+    if not is_dtensor(buf):
+        bidx = torch.arange(buf.shape[0], device=buf.device)
+        buf[bidx, slot] = value.to(buf.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = buf.device_mesh
+    row_pl, val_pl, sdims = [], [], []
+    for d, p in enumerate(buf.placements):
+        if p.is_shard() and p.dim == 1:
+            sdims.append(d)
+        row_pl.append(Shard(0) if p.is_shard() and p.dim == 0
+                      else Replicate())
+        val_pl.append(Shard(p.dim - 1) if p.is_shard() and p.dim > 1
+                      else row_pl[-1])
+    loc = buf.to_local()
+    val = to_local_as(value, mesh, val_pl).to(loc.dtype)
+    sl = to_local_as(slot, mesh, row_pl)
+    start = mesh_chunk(mesh, sdims)[0] * loc.shape[1]
+    here = (sl >= start) & (sl < start + loc.shape[1])
+    ls = torch.clamp(sl - start, 0, loc.shape[1] - 1)
+    bidx = torch.arange(loc.shape[0], device=loc.device)
+    keep = here.view(-1, *([1] * (val.dim() - 1)))
+    loc[bidx, ls] = torch.where(keep, val, loc[bidx, ls])
 
 
 # ---------------------------------------------------------------------------

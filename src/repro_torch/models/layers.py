@@ -15,15 +15,63 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import (from_local_as, is_dtensor,
+                                              reduce_partial, replicated,
+                                              shard, to_local_as)
 from repro_torch.models.param import Spec
 
 F32 = torch.float32
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` in the promoted dtype of the two, as ``jnp.einsum``."""
+    """``x @ w`` in the promoted dtype of the two, as ``jnp.einsum``.
+    DTensors take ``_sharded_matmul``."""
     dt = torch.promote_types(x.dtype, w.dtype)
+    if is_dtensor(x) or is_dtensor(w):
+        return _sharded_matmul(x.to(dt), w.to(dt))
     return torch.matmul(x.to(dt), w.to(dt))
+
+
+def _sharded_matmul(x, w):
+    """``x (..., K) @ w (K, N)`` of DTensors, as Megatron lays it out, on
+    each rank's local tensors; per mesh dim:
+
+    * a shard of a leading (batch or sequence) dim of ``x`` stays and the
+      weight is gathered there (FSDP's just-in-time gather: the batch
+      rides "data", which also shards the weight's embed dim);
+    * a shard of ``w``'s output dim stays (column-parallel);
+    * a shard of the contraction on either side splits it on both (the
+      other side is sliced, with no move), and the partial sums are
+      all-reduced at once (row-parallel), not carried on;
+    * a shard of the contraction in ``x`` facing a column-parallel
+      weight is gathered.
+
+    Only gathers, reductions and slices move data, so the layout is the
+    same on every torch release, and no product runs whole on each rank
+    where either side is split."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = (x if is_dtensor(x) else w).device_mesh
+    x = reduce_partial(x)
+    last = x.ndim - 1
+    rep = [Replicate()] * mesh.ndim
+    xp = list(x.placements) if is_dtensor(x) else rep
+    wp = list(w.placements) if is_dtensor(w) else rep
+    x_pl, w_pl, out_pl = [], [], []
+    for a, b in zip(xp, wp):
+        if a.is_shard() and a.dim != last:           # batch: gather w
+            x_pl.append(a), w_pl.append(Replicate()), out_pl.append(a)
+        elif b.is_shard() and b.dim == 1:            # column-parallel
+            x_pl.append(Replicate()), w_pl.append(b)
+            out_pl.append(Shard(last))
+        elif a.is_shard() or (b.is_shard() and b.dim == 0):  # row-parallel
+            x_pl.append(Shard(last)), w_pl.append(Shard(0))
+            out_pl.append(Partial())
+        else:
+            x_pl.append(a), w_pl.append(b), out_pl.append(Replicate())
+    out = torch.matmul(to_local_as(x, mesh, x_pl, out_pl),
+                       to_local_as(w, mesh, w_pl, out_pl))
+    return reduce_partial(from_local_as(out, mesh, out_pl,
+                                        (*x.shape[:-1], w.shape[-1])))
 
 
 # ---------------------------------------------------------------------------
@@ -130,6 +178,8 @@ def apply_mlp(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     h = _act(cfg, h)
     if cfg.glu:
         h = h * matmul(x, p["wi_1"])
+    h = shard(h, *(("batch", "res_seq", "mlp") if h.ndim == 3
+                   else ("batch", "mlp")))
     o = matmul(h, p["wo"])
     if "bo" in p:
         o = o + p["bo"].to(o.dtype)
@@ -166,14 +216,47 @@ def embed_specs(cfg: ArchConfig) -> dict:
                            scale=1.0)}
 
 
+class _ConcreteGrad(torch.autograd.Function):
+    """The identity on a DTensor whose gradient arrives with its partial
+    sums reduced: the masked lookup of a vocabulary-sharded table takes
+    the whole gradient of its rows (DTensor cannot turn a partial-sum
+    gradient into the lookup's masked partial)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_partial(g)
+
+
 def embed_tokens(cfg: ArchConfig, p: dict, tokens: torch.Tensor) -> torch.Tensor:
     """The token rows of the embedding; gemma scales them by
     ``sqrt(d_model)`` rounded to their dtype, as the JAX package does (a
-    Python number: no host tensor is built on each call)."""
-    x = p["tokens"][tokens.long()]
+    Python number: no host tensor is built on each call).  A DTensor
+    table takes ``embedding``, which DTensor runs on a vocabulary-sharded
+    table as a masked lookup and one all-reduce (an index would gather
+    the table first); a plain one is indexed, the same rows."""
+    table = p["tokens"]
+    if is_dtensor(table):
+        # the embed dim's FSDP shard gathered just in time, the
+        # vocabulary's kept; the tokens take the batch shard of the rows
+        # first, so the masked lookup's mask is the rows' own
+        from torch.distributed.tensor import Replicate
+        table = table.redistribute(table.device_mesh, [
+            q if q.is_shard() and q.dim == 0 else Replicate()
+            for q in table.placements])
+        tokens = shard(replicated(tokens, table), *("batch", "seq")[
+            :tokens.ndim])
+        x = torch.nn.functional.embedding(tokens.long(), table)
+        x = _ConcreteGrad.apply(reduce_partial(x))
+    else:
+        x = table[tokens.long()]
     if cfg.name.startswith("gemma"):
         x = x * _rounded(math.sqrt(cfg.d_model), x.dtype)
-    return x
+    return shard(x, *(("batch", "seq", "embed") if x.ndim == 3
+                      else ("batch", "embed")))
 
 
 def unembed(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -183,4 +266,5 @@ def unembed(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     if cfg.attn_logit_softcap:  # gemma-style final softcap reuse
         c = cfg.attn_logit_softcap
         logits = torch.tanh(logits / c) * c
-    return logits
+    return shard(logits, *(("batch", "seq", "vocab") if logits.ndim == 3
+                           else ("batch", "vocab")))

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import pad_dim, shard
 from repro_torch.kernels import ops
 from repro_torch.models.layers import matmul, rms_norm, silu
 from repro_torch.models.param import Spec
@@ -81,7 +82,7 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     """Depthwise causal conv.  x: (B, S, C); w: (K, C).  The sum of
     shifted products runs in x's dtype, as in the JAX package."""
     k, s = w.shape[0], x.shape[1]
-    pad = torch.nn.functional.pad(x, (0, 0, k - 1, 0))
+    pad = pad_dim(x, 1, k - 1, 0)
     out = pad[:, 0:s, :] * w[0]
     for i in range(1, k):
         out = out + pad[:, i:i + s, :] * w[i]
@@ -134,7 +135,8 @@ def apply_mamba(cfg: ArchConfig, p: dict, u: torch.Tensor):
                       p["conv_bC"]).reshape(b, s, G, n)
     dt = _softplus(dt + p["dt_bias"])
     A = -torch.exp(p["A_log"])
-    xh = x.reshape(b, s, h, pd)
+    xh = shard(x.reshape(b, s, h, pd), "batch", "res_seq", "mamba_heads",
+               None)
     y, state = ops.ssd_scan(xh, dt, A, Bm, Cm, chunk=m.chunk)
     out = _out(cfg, p, y, xh, z, u.dtype)
 
@@ -143,7 +145,7 @@ def apply_mamba(cfg: ArchConfig, p: dict, u: torch.Tensor):
     def tail(a: torch.Tensor) -> torch.Tensor:
         a = a.reshape(b, s, -1)[:, -k:]
         if a.shape[1] < k:
-            a = torch.nn.functional.pad(a, (0, 0, k - a.shape[1], 0))
+            a = pad_dim(a, 1, k - a.shape[1], 0)
         return a.to(BF16)
     cache = {"h": state, "conv_x": tail(x0), "conv_B": tail(B0),
              "conv_C": tail(C0)}

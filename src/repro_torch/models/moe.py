@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import shard
 from repro_torch.models.layers import _act, matmul
 from repro_torch.models.param import Spec
 from repro_torch.util import opt_flags
@@ -87,6 +88,9 @@ def _dq(p: dict, name: str) -> torch.Tensor:
     the reference does."""
     w = p[name]
     if w.dtype == torch.int8:
+        # the int8 bank gathered over its FSDP dim, its d_ff shard kept
+        w = shard(w, *((None, "expert_mlp", None) if name == "wo"
+                       else (None, None, "expert_mlp")))
         scale = p[name + "_scale"] * (1.0 / 127.0)
         return (w.to(torch.bfloat16)
                 * scale.to(torch.bfloat16)[:, None, None])
@@ -103,6 +107,7 @@ def _expert_ffn(cfg: ArchConfig, p: dict, xe: torch.Tensor) -> torch.Tensor:
     """xe: (e, n, d) tokens dispatched to each expert -> (e, n, d), the
     experts' gated MLPs, one ``torch.bmm`` a product."""
     h = _act(cfg, _bmm(xe, _dq(p, "wi_0"))) * _bmm(xe, _dq(p, "wi_1"))
+    h = shard(h, "expert", None, "expert_mlp")
     return _bmm(h, _dq(p, "wo"))
 
 
@@ -138,6 +143,7 @@ def _dispatch(cfg: ArchConfig, p: dict, x: torch.Tensor, idx: torch.Tensor,
     put = torch.where(keep, slot, cap)
     xe = x.new_zeros((e, b, cap + 1, d))
     xe[flat, rows, put] = x.repeat_interleave(k, dim=1)
+    xe = shard(xe, "expert", "batch", None, None)
     y = _expert_ffn(cfg, p, xe[:, :, :cap].reshape(e, b * cap, d))
     y = y.reshape(e, b, cap, d)[flat, rows, put.clamp(max=cap - 1)]
     # the combine weights are rounded to x's dtype, as the reference's
@@ -175,6 +181,7 @@ def apply_moe(cfg: ArchConfig, p: dict, x: torch.Tensor,
         sp = p["shared"]
         h = _act(cfg, matmul(x, sp["wi_0"])) * matmul(x, sp["wi_1"])
         out = out + matmul(h, sp["wo"])
+    out = shard(out, "batch", "res_seq", "embed")
     return out[:, 0, :] if squeezed else out
 
 

@@ -31,6 +31,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ENC_ATTN, ArchConfig
+from repro_torch.distributed.sharding import shard
 from repro_torch.models import param as P
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import (apply_norm, embed_specs, embed_tokens,
@@ -127,7 +128,8 @@ def _embed_input(cfg: ArchConfig, params: dict, batch: dict):
         pe = matmul(batch["patch_embeds"].to(BF16),
                     params["frontend"]["proj"])
         x = torch.cat([pe, x], dim=1)          # promotes as jnp.concatenate
-    return x, torch.arange(x.shape[1], device=x.device)
+    return (shard(x, "batch", "res_seq", "embed"),
+            torch.arange(x.shape[1], device=x.device))
 
 
 def _encode(cfg: ArchConfig, params: dict, frames: torch.Tensor, *,

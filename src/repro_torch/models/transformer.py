@@ -27,6 +27,8 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ATTN, ATTN_SWA, ENC_ATTN, MAMBA, ArchConfig
+from repro_torch.distributed.sharding import (group_of, pad_dim, replicated,
+                                              shard, stack_groups)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
@@ -97,7 +99,7 @@ def stack_cache_specs(cfg: ArchConfig, batch: int, max_len: int) -> dict:
 def group_slice(tree: dict, g: int) -> dict:
     """Group ``g`` of a stacked tree: views, so in-place writes reach the
     stacked tensors."""
-    return tree_map(lambda t: t[g], tree)
+    return tree_map(lambda t: group_of(t, g), tree)
 
 
 def n_groups(tree: dict) -> int:
@@ -163,7 +165,8 @@ def apply_block_seq(cfg: ArchConfig, p: dict, kind: str, x: torch.Tensor, *,
         ek, ev = (t.to(torch.bfloat16) for t in xkv)
         payload = (dict(payload, ek=ek, ev=ev) if kind == MAMBA
                    else payload + (ek, ev))
-    return _residual(cfg, p, x, h, mix, moe_impl, cross), payload
+    x = _residual(cfg, p, x, h, mix, moe_impl, cross)
+    return shard(x, "batch", "res_seq", "embed"), payload
 
 
 def apply_block_decode(cfg: ArchConfig, p: dict, kind: str, x: torch.Tensor,
@@ -266,7 +269,7 @@ def run_stack_prefill(cfg: ArchConfig, groups: dict, x: torch.Tensor, *,
                     entry["ek"], entry["ev"] = payload[2:]
             caches[f"pos{i}"] = entry
         per_group.append(caches)
-    stacked = {name: {leaf: torch.stack([c[name][leaf] for c in per_group])
+    stacked = {name: {leaf: stack_groups([c[name][leaf] for c in per_group])
                       for leaf in per_group[0][name]}
                for name in per_group[0]}
     return x, stacked
@@ -286,9 +289,9 @@ def _prefill_cache(k: torch.Tensor, v: torch.Tensor,
     pos = torch.broadcast_to(positions.to(torch.int32), (b, s))
     if size >= s:
         pad = size - s
-        kc = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad)).to(torch.bfloat16)
-        vc = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad)).to(torch.bfloat16)
-        pos = torch.nn.functional.pad(pos, (0, pad), value=-1)
+        kc = pad_dim(k, 1, 0, pad).to(torch.bfloat16)
+        vc = pad_dim(v, 1, 0, pad).to(torch.bfloat16)
+        pos = pad_dim(pos, 1, 0, pad, value=-1)
     else:  # ring: keep the last `size`, placed at slot = pos % size
         last = torch.arange(s - size, s)
         slot_of = torch.zeros(size, dtype=torch.long)
@@ -297,7 +300,10 @@ def _prefill_cache(k: torch.Tensor, v: torch.Tensor,
         kc = k[:, slot_of].to(torch.bfloat16)
         vc = v[:, slot_of].to(torch.bfloat16)
         pos = torch.broadcast_to(slot_of.to(torch.int32), (b, size)).clone()
-    return {"k": kc, "v": vc, "pos": pos.contiguous()}
+    kc = shard(kc, "batch", "kv_seq", "kv_heads", "head_dim")
+    vc = shard(vc, "batch", "kv_seq", "kv_heads", "head_dim")
+    pos = shard(replicated(pos.contiguous(), kc), "batch", "kv_seq")
+    return {"k": kc, "v": vc, "pos": pos}
 
 
 def run_stack_decode(cfg: ArchConfig, groups: dict, x: torch.Tensor,

@@ -23,6 +23,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.models.param import leaves, tree_map
 
 F32 = torch.float32
@@ -96,6 +97,12 @@ def global_norm(tree: dict) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def _local(t):
+    """A DTensor's local tensor (a view of its storage); a plain tensor
+    itself."""
+    return t.to_local() if is_dtensor(t) else t
+
+
 def _update_slice(p, g, m, v, scale, lr, bc1, bc2, cfg: OptConfig) -> None:
     """One slice of one leaf, in place: the reference's ``upd``."""
     b1, b2 = cfg.b1, cfg.b2
@@ -125,15 +132,18 @@ def adamw_update(params: dict, grads: dict, opt_state: dict,
     lr = lr_at(cfg, step)
     bc1 = 1 - cfg.b1 ** step.to(F32)
     bc2 = 1 - cfg.b2 ** step.to(F32)
+    # DTensor leaves (a sharded step) update their local shards: the
+    # update is element by element, the scalars are replicated
+    scale, lr_l, bc1, bc2 = map(_local, (scale, lr, bc1, bc2))
     with torch.no_grad():
         for path, p in leaves(params):
-            g = _get(grads, path).reshape(-1)
-            m = _get(opt_state["m"], path).view(-1)
-            v = _get(opt_state["v"], path).view(-1)
-            flat = p.view(-1)
+            g = _local(_get(grads, path)).reshape(-1)
+            m = _local(_get(opt_state["m"], path)).view(-1)
+            v = _local(_get(opt_state["v"], path)).view(-1)
+            flat = _local(p).view(-1)
             for i in range(0, flat.numel(), UPDATE_SLICE):
                 sl = slice(i, i + UPDATE_SLICE)
-                _update_slice(flat[sl], g[sl], m[sl], v[sl], scale, lr,
+                _update_slice(flat[sl], g[sl], m[sl], v[sl], scale, lr_l,
                               bc1, bc2, cfg)
     metrics = {"grad_norm": gnorm, "lr": lr}
     return params, {"m": opt_state["m"], "v": opt_state["v"],

@@ -22,6 +22,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.models import registry as R
 from repro_torch.models.layers import unembed
 from repro_torch.models.param import leaves, tree_map, unflatten
@@ -30,10 +31,30 @@ from repro_torch.training.optimizer import OptConfig, adamw_update
 F32 = torch.float32
 
 
+def _vocab_sharded_ce(logits, tc: torch.Tensor):
+    """(log-sum-exp, gold logit, argmax == target) of DTensor ``logits``
+    ``(B, c, V)`` whose vocabulary is sharded, without gathering it: the
+    row max is a max across the shards (taken off the gradient: the
+    shift does not change the value's derivative), the sum of
+    ``exp(logit - max)`` and the gold logit (the one non-zero term of a
+    masked row) sums across them, and the argmax is the least vocabulary
+    index that holds the max, a min across them (the first of equal
+    maxima, as ``argmax``)."""
+    v = logits.shape[-1]
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(dim=-1))
+    vocab = torch.arange(v, device=tc.device)
+    gold = torch.where(vocab == tc[..., None], logits, 0.0).sum(dim=-1)
+    first = torch.where(logits == m, vocab, v).amin(dim=-1)
+    return lse, gold, first == tc
+
+
 def chunked_ce_loss(cfg: ArchConfig, params: dict, hidden: torch.Tensor,
                     targets: torch.Tensor, chunk: int = 512):
     """hidden: (B, S, D); targets: (B, S) with -1 = masked. -> (loss,
-    metrics)."""
+    metrics).  A DTensor unembedding sharded over its vocabulary takes
+    the log-sum-exp, the gold logit and the argmax across the shards
+    (``_vocab_sharded_ce``)."""
     b, s, d = hidden.shape
     chunk = min(chunk, s)
     if s % chunk:
@@ -43,10 +64,16 @@ def chunked_ce_loss(cfg: ArchConfig, params: dict, hidden: torch.Tensor,
         logits = unembed(cfg, params, h).to(F32)             # (B, chunk, V)
         mask = (t >= 0).to(F32)
         tc = torch.clamp(t, min=0).long()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, tc[..., None])[..., 0]
+        if is_dtensor(logits) and any(
+                p.is_shard() and p.dim == logits.ndim - 1
+                for p in logits.placements):
+            lse, gold, hit = _vocab_sharded_ce(logits, tc)
+        else:
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, tc[..., None])[..., 0]
+            hit = torch.argmax(logits, dim=-1) == tc
         ce = (lse - gold) * mask
-        correct = (torch.argmax(logits, dim=-1) == tc).to(F32) * mask
+        correct = hit.to(F32) * mask
         return ce.sum(), mask.sum(), correct.sum()
 
     zero = torch.zeros((), dtype=F32, device=hidden.device)
@@ -68,6 +95,15 @@ def make_loss_fn(cfg: ArchConfig, *, moe_impl: str = "dispatch",
                              remat=remat)
         return chunked_ce_loss(cfg, params, hidden, batch["targets"])
     return loss_fn
+
+
+def _like_param(g, p):
+    """A DTensor gradient in its parameter's placements (a partial sum
+    reduced, a replicated one sliced): the gradient all-reduce of a
+    sharded step."""
+    if is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def _map2(fn, a, b):
@@ -92,8 +128,9 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig, *,
         paths, flat = zip(*((path, t.requires_grad_(True))
                             for path, t in leaves(params)))
         loss, metrics = loss_fn(params, batch)
-        grads = unflatten(zip(paths, torch.autograd.grad(loss, flat)))
-        return loss.detach(), metrics, grads
+        grads = [_like_param(g, p)
+                 for g, p in zip(torch.autograd.grad(loss, flat), flat)]
+        return loss.detach(), metrics, unflatten(zip(paths, grads))
 
     def train_step(params, opt_state, batch):
         if microbatches == 1:
@@ -102,8 +139,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig, *,
             k = microbatches
             loss = torch.zeros((), dtype=F32,
                                device=next(leaves(params))[1].device)
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=F32,
-                                                   device=p.device), params)
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=F32),
+                             params)
             for i in range(k):
                 mb = {n: x.reshape((k, x.shape[0] // k) + x.shape[1:])[i]
                       for n, x in batch.items()}

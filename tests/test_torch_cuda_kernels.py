@@ -414,6 +414,71 @@ def test_decode_attention_kernel_without_key_positions(cuda, B, T, H, KV,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,T,H,KV,hd,window", [
+    (4, 192, 32, 32, 96, None),            # phi3-mini-3.8b's decode
+    (4, 1024, 16, 8, 256, 1024),           # gemma3-12b, ring + window
+    (4, 1164, 16, 8, 256, None),           # gemma3-12b's global layer
+])
+def test_decode_attention_lse_rounds_against_plain(cuda, B, T, H, KV, hd,
+                                                   window):
+    """The flash-decode across ranks in two slices of the cache: the
+    kernel's LSE output (``lse_only``) against the plain version's
+    within 1e-5 of the logit scale; its LSE input (``lse``) against the
+    plain version's f32 partials within 2^-7 max|v|; and the two slices'
+    partials, summed and rounded once, against one kernel call over the
+    whole cache within the same bound.  A slice without a valid slot
+    gives -1e30 and adds zeros."""
+    g = np.random.default_rng((B, T, H))
+    q = _bf16(g, B, H, hd, device=cuda, dtype=torch.float32)
+    k = _bf16(g, B, T, KV, hd, device=cuda)
+    v = _bf16(g, B, T, KV, hd, device=cuda)
+    lengths = torch.tensor([T, T - 7, T // 3, 5][:B], dtype=torch.int32,
+                           device=cuda)
+    kp = torch.arange(T, dtype=torch.int32, device=cuda).expand(B, T)
+    kp = kp.contiguous()
+    args = dict(lengths=lengths, q_pos=lengths - 1, window=window)
+    whole = decode_attention.decode_attention(q, k, v, key_positions=kp,
+                                              **args)
+    h = T // 2
+    cuts = [slice(0, h), slice(h, T)]
+    before = (decode_attention.decode_attention.lse_launches,
+              decode_attention.decode_attention.partial_launches)
+    lses, plain_lses = [], []
+    for c in cuts:
+        sl = dict(key_positions=kp[:, c].contiguous(), **args)
+        kc, vc = k[:, c].contiguous(), v[:, c].contiguous()
+        lses.append(decode_attention.decode_attention(q, kc, vc,
+                                                      lse_only=True, **sl))
+        plain_lses.append(ref.decode_attention(q, kc, vc, lse_only=True,
+                                               **sl))
+    torch.cuda.synchronize()
+    for got, want in zip(lses, plain_lses):
+        assert got.dtype == torch.float32 and got.shape == (B, H)
+        live = want > -1e29
+        torch.testing.assert_close(got[live], want[live], rtol=0,
+                                   atol=1e-5 * float(want[live].abs().max()))
+        assert (got[~live] < -1e29).all()
+    assert not (plain_lses[1][3] > -1e29).any()     # row 3: slice 2 empty
+    L = torch.logsumexp(torch.stack(lses), dim=0)
+    parts = []
+    for c in cuts:
+        sl = dict(key_positions=kp[:, c].contiguous(), **args)
+        kc, vc = k[:, c].contiguous(), v[:, c].contiguous()
+        part = decode_attention.decode_attention(q, kc, vc, lse=L, **sl)
+        plain = ref.decode_attention(q, kc, vc, lse=L, **sl)
+        assert part.dtype == torch.float32 and part.shape == (B, H, hd)
+        torch.testing.assert_close(part, plain, rtol=0, atol=ATTN_TOL *
+                                   float(v.float().abs().max()))
+        parts.append(part)
+    torch.cuda.synchronize()
+    assert (decode_attention.decode_attention.lse_launches,
+            decode_attention.decode_attention.partial_launches) == (
+        before[0] + 2, before[1] + 2)
+    assert parts[1][3].abs().max() == 0
+    _within((parts[0] + parts[1]).to(torch.bfloat16), whole, v)
+
+
+@pytest.mark.gpu
 def test_decode_attention_kernel_unaligned_cache(cuda):
     """A cache whose rows are not 16-byte aligned takes the element-load
     instantiation; the same result as the plain version."""

@@ -26,8 +26,10 @@ count of a meta run against a CPU run (rel 1e-2, see below).
   JAX package's prefill reads 12,941,330 FLOPs and 4,238,187 bytes there:
   NOT COMPARABLE, since XLA counts element-wise work too, and fuses (its
   products alone are the same 23.1 M, its total is not a count of them).
-* Production meshes record argument bytes only (no ``flops``), and
-  ``roofline.load_results`` skips them; the CLI writes its files.
+* Production meshes record the sharded step's per-device counts too
+  (``tests/test_torch_dryrun_mesh.py`` holds them to the layout);
+  ``roofline.load_results`` reads each mesh's files; the CLI writes its
+  files.
 * ``kernels.ops`` sends ``meta`` to the plain versions and still refuses
   any other device that is neither the CPU nor CUDA.
 """
@@ -225,16 +227,20 @@ def test_production_meshes_record_memory_only(tmp_path, monkeypatch):
                                      "temp_size_in_bytes"}
     assert card["collectives"]["bytes_by_op"] == {} and card["chips"] == 1
     for r, chips in ((pod, 256), (multi, 512)):
-        assert "flops" not in r and r["chips"] == chips
-        assert r["memory"].keys() == {"argument_size_in_bytes"}
+        assert r["chips"] == chips and "sharded_error" not in r
+        assert r["memory"].keys() == card["memory"].keys()
         assert r["memory"]["argument_size_in_bytes"] < \
             card["memory"]["argument_size_in_bytes"]
+        assert 0 < r["flops"] < card["flops"]
+        assert r["collectives"]["total_bytes"] > 0
     assert sorted(p.name for p in tmp_path.iterdir()) == [
         "phi3-mini-3.8b_decode_32k_card.json",
         "phi3-mini-3.8b_decode_32k_multipod.json",
         "phi3-mini-3.8b_decode_32k_pod.json"]
     assert [r["shape"] for r in roofline.load_results()] == ["decode_32k"]
-    assert roofline.load_results(multi_pod=True) == []
+    assert [r["chips"] for r in roofline.load_results(multi_pod=True)] == \
+        [512]
+    assert [r["chips"] for r in roofline.load_results(mesh="pod")] == [256]
     assert roofline.decode_step_time("phi3-mini-3.8b") == \
         roofline.analyze(card).bound_s
 
