@@ -19,7 +19,9 @@ trains phi3-mini-3.8b and mamba2-1.3b at full width and depth:
    scans at each grid's launch, ``SCAN_CASES``, and as a one-slot
    launch; the quantile head at each grid's first launch,
    ``QUANTILE_CASES``, and a synthetic edge case), the attention and SSD
-   kernels within their stated tolerances;
+   kernels within their stated tolerances, ``decode_attention``'s two
+   flash-decode rounds (``lse_mode`` 1 and 2) at step 7c's per-rank
+   shape (``DECODE_LSE_CASES``), each timed against its bound;
 4. runs four grids end to end through ``repro_torch.vector.run_cells``
    (the paper's Fig. 1 grid, a 16-server jsq grid, server-failure and
    batched-serving), checks that every vector kernel was launched and
@@ -221,17 +223,32 @@ trains phi3-mini-3.8b and mamba2-1.3b at full width and depth:
    ``cuda:0`` over a gloo group (NCCL refuses two ranks on one card) as
    a (1, 4) mesh under the ``tp`` rules; phi3-mini-3.8b (32 heads, 8 a
    rank), llava-next-mistral-7b's text path (32 query heads over 8 KV
-   heads: 2 KV heads a rank) and mamba2-1.3b (64 heads, 16 a rank), at
-   full width and ``SHARDED_LAYERS`` layers in f32 on weights of seed 0
-   drawn on the card, a prompt of seed 1 (128 tokens; mamba2 384, past a
-   scan chunk), prefilled and decoded ``SHARDED_STEPS`` greedy steps on
-   a cache sharded along its slots (the flash-decode across ranks); rank
-   0 runs the same model unsharded first.  Greedy tokens must be equal
-   and logits within ``SHARDED_LOGIT_TOL`` of max|logit|; each rank's
+   heads: 2 KV heads a rank), mamba2-1.3b (64 heads, 16 a rank) and
+   deepseek-moe-16b (16 heads, 4 a rank; 16 of its 64 experts a rank),
+   at full width and ``SHARDED_LAYERS`` layers in f32 on weights of seed
+   0 drawn on the card, a prompt of seed 1 (128 tokens; mamba2 384, past
+   a scan chunk), prefilled and decoded ``SHARDED_STEPS`` greedy steps
+   on a cache sharded along its slots (the flash-decode across ranks);
+   rank 0 runs the same model unsharded first.  Greedy tokens must be
+   equal, and the prefill's logits within max(``SHARDED_LOGIT_TOL``,
+   2 u) of max|logit|, u the unsharded run's gap with every f32 weight
+   one ulp off; each decode step within that bound against the unsharded model
+   run on the sharded run's own caches and attending as the flash-decode
+   does, and free-running within the larger of that bound and twice the
+   cache's and the probabilities' rounding effects measured at that
+   step (``same_cache_steps``); the bf16 cache, the prefill's and each
+   step's new K/V, within one bf16 step of the unsharded run's, and the
+   router's choices at every call, the prompt's and each decode step's,
+   equal on every rank and on the same caches; each rank's
    counters must show ``flash_attention``, ``decode_attention``'s LSE
    output and LSE input, and ``ssd_scan``, at the per-rank shapes, and
    each rank's first LSE output and partial are held against the plain
-   version's on the same inputs;
+   version's on the same inputs; before it, step 7's families sub-step
+   (``run_family_meta``) runs every family's smoke config as one rank of
+   a (1, 4) mesh over the fake process group on the ``meta`` device (a
+   prefill, a decode step, an ``sp`` train step) and mixtral-8x22b's
+   ``decode_32k`` as one rank of 16x16 (d_ff-parallel experts), on this
+   machine's torch, none with ``sharded_error``;
 8. times each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, with CUDA events (median of
    repeated runs; a scan's plain version, seconds a call, once), and
@@ -1006,6 +1023,75 @@ def check_decode(device, label, B, T, H, KV, hd, window, ring,
             "library_ms": library_time(library),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "full_cache_bound_ms": full_cache_bound_ms}
+
+
+#: (label, B, T, H, KV, hd, first slot's position): the two rounds of the
+#: flash-decode across ranks (``lse_mode`` 1, the LSE output, and 2, the
+#: LSE input) at step 7c's per-rank shape of phi3-mini-3.8b: one row, a
+#: rank's 42 of the cache's 168 slots, every query head (q is gathered;
+#: one token) over every KV head, hd 96; the slice of rank 1 (positions
+#: 42-83, all valid), at the first decode step (length 129)
+DECODE_LSE_CASES = [
+    ("phi3 7c rank slice B=1 T=42", 1, 42, 32, 32, 96, 42),
+]
+
+
+def check_decode_lse(device, label, B, T, H, KV, hd, first) -> dict:
+    """Both LSE modes of ``decode_attention`` against the plain version on
+    the same inputs, timed (kernel and plain), with their bounds by
+    bytes: mode 1 reads q and each valid slot's key, writes (B, H) f32;
+    mode 2 also reads the values and the LSE and writes the (B, H, hd)
+    f32 partials.  Returns {1: record, 2: record}."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=device).manual_seed(T * 11 + H)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=device
+                           ).to(torch.bfloat16)
+    q, k, v = rnd(B, H, hd), rnd(B, T, KV, hd), rnd(B, T, KV, hd)
+    lengths = torch.full((B,), 129, dtype=torch.int32, device=device)
+    pos = (first + torch.arange(T, dtype=torch.int32, device=device)
+           ).repeat(B, 1)
+    kw = dict(lengths=lengths, key_positions=pos, q_pos=lengths - 1)
+    valid = (pos >= 0) & (pos < lengths[:, None])
+    keys = int(valid.sum().item())
+    slot = KV * hd * k.element_size()
+    small = nbytes((q, lengths, pos, kw["q_pos"]))
+    out = {}
+    lse = da.decode_attention(q, k, v, lse_only=True, **kw)
+    plain_lse = ref.decode_attention(q, k, v, lse_only=True, **kw)
+    part = da.decode_attention(q, k, v, lse=plain_lse, **kw)
+    plain_part = ref.decode_attention(q, k, v, lse=plain_lse, **kw)
+    torch.cuda.synchronize()
+    errs = {1: float((lse - plain_lse).abs().max())
+            / max(1.0, float(plain_lse.abs().max())),
+            2: float((part - plain_part).abs().max())
+            / float(v.float().abs().max())}
+    if errs[1] > SHARDED_LSE_TOL or errs[2] > SHARDED_PARTIAL_TOL:
+        fail(f"decode_attention {label}: LSE modes against the plain "
+             f"version {errs}")
+    for mode, extra, outs, flops in (
+            (1, {"lse_only": True}, (plain_lse,), 2.0 * hd * keys * H),
+            (2, {"lse": plain_lse}, (plain_lse, plain_part),
+             4.0 * hd * keys * H)):
+        moved = small + slot * keys * mode + nbytes(outs)
+        bound_ms, bound_by = attention_bound(moved, flops, BF16_OPS_PER_S)
+        call = dict(kw, **extra)
+        out[mode] = {
+            "shape": {"B": B, "T": T, "H": H, "KV": KV, "hd": hd,
+                      "positions": [first, first + T - 1],
+                      "length": 129},
+            "lse_mode": mode, "max_rel_err": errs[mode],
+            "ms": cuda_ms(lambda: da.decode_attention(q, k, v, **call)),
+            "plain_ms": cuda_ms(lambda: ref.decode_attention(q, k, v,
+                                                             **call)),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+        if out[mode]["ms"] < bound_ms:
+            fail(f"decode_attention {label} lse_mode {mode}: "
+                 f"{out[mode]['ms']:.5f} ms reads under its bound "
+                 f"{bound_ms:.5f} ms")
+    return out
 
 
 #: (label, b, s, h, p, n, chunk, dtype): mamba2-1.3b's prefill at the
@@ -2809,7 +2895,7 @@ def run_card_twins(kernels) -> tuple:
 #: full width in f32, 8 greedy decode steps
 SHARDED_MESH = (1, 4)
 SHARDED_CHECKS = (("phi3-mini-3.8b", 128), ("llava-next-mistral-7b", 128),
-                  ("mamba2-1.3b", 384))
+                  ("mamba2-1.3b", 384), ("deepseek-moe-16b", 128))
 SHARDED_LAYERS = 2
 SHARDED_STEPS = 8
 #: sharded against unsharded logits, relative to max|logit|: at most
@@ -2824,12 +2910,36 @@ SHARDED_STEPS = 8
 #: one ulp off, llava 3.918e-5 against 7.043e-5, mamba2 2.079e-4
 #: against 3.799e-4 (step 5's card against the CPU: 2.4e-4, 7.2e-4)
 SHARDED_LOGIT_TOL = 1e-4
+#: The decode steps read two bf16 roundings that the ranks move: the K/V
+#: cache (the prefill's and each step's new entries, each element within
+#: one bf16 step of the unsharded run's) and the attention probabilities
+#: (the unsharded decode rounds softmax(logits) to bf16 before P.V; the
+#: flash-decode across ranks rounds exp(logit - lse), lse the whole
+#: cache's log-sum-exp from four ranks' parts).  ``same_cache_steps``
+#: runs the unsharded model on the sharded run's caches attending as the
+#: flash-decode does: every model's steps are held there to
+#: max(SHARDED_LOGIT_TOL, 2 u).  Free-running, each step is held to the
+#: larger of that bound and twice each of the two effects that run
+#: measures at that step: the cache's (the unsharded decode on the
+#: sharded caches against the unsharded run) and the probabilities'
+#: rounding (the two ways of attending on the same caches).  Where the
+#: scores are large and a head's weight is split between a few keys, a
+#: probability rounded apart moves the logits by up to a bf16 step of its
+#: share.  deepseek-moe-16b at 2 layers on an H100 80GB HBM3 at 700 W:
+#: its eighth step read 2.418e-3 free-running, the two ways of attending
+#: on the same caches 2.405e-3 apart, and the sharded step 1.043e-5 from
+#: the unsharded one attending as the flash-decode (its one-ulp gap
+#: 1.396e-5); the other steps' probabilities rounded alike (PERF.md
+#: section 6)
 #: the kernel's LSE output against the plain version's, relative to
 #: max(1, max|lse|), and its f32 partials relative to max|v|
 SHARDED_LSE_TOL = 1e-5
 SHARDED_PARTIAL_TOL = 2.0 ** -7
-#: seconds the phase should take (the whole phase, ranks' start included)
-SHARDED_BUDGET_S = 45.0
+#: seconds the phase should take (the whole phase, ranks' start included):
+#: 30-35 s for the first three models alone, and deepseek-moe-16b's
+#: draw (1,595,156,480 parameters at 2 layers, 6.4 GB in f32, on every
+#: rank), its unsharded runs on rank 0 and its sharded run
+SHARDED_BUDGET_S = 60.0
 
 
 def sharded_model(arch: str, prompt_len: int) -> tuple:
@@ -2848,16 +2958,33 @@ def sharded_model(arch: str, prompt_len: int) -> tuple:
     return cfg, params, prompt.cuda(), prompt_len + SHARDED_STEPS + 32
 
 
-def sharded_greedy(cfg, params, prompt, max_len: int, forced=None) -> tuple:
+def _gathered(*trees) -> tuple:
+    """A copy of each tree, every DTensor gathered whole (a collective:
+    every rank calls it; a replicated DTensor's whole tensor is its local
+    tensor itself, which a later step writes in place, so it is cloned)."""
+    from repro_torch.distributed.sharding import is_dtensor
+    from repro_torch.models.param import tree_map
+    return tuple(tree_map(lambda t: (t.full_tensor() if is_dtensor(t)
+                                     else t).clone(), tree)
+                 for tree in trees)
+
+
+def sharded_greedy(cfg, params, prompt, max_len: int, forced=None,
+                   caches=None) -> tuple:
     """Prefill and ``SHARDED_STEPS`` greedy decode steps (fed ``forced``
     tokens in place of the argmax where given) -> (logits (steps + 1, V)
-    f32 on the host, tokens); a DTensor's logits are gathered first."""
+    f32 on the host, tokens, the MoE router's top-k choices at every
+    router call, the prefill's and each decode step's, as lists); a
+    DTensor's logits are gathered first.  ``caches``: a list that takes,
+    for each decode step, the decode cache gathered whole before the
+    step, its position, its token and the cache gathered after it."""
     from repro_torch.distributed.sharding import is_dtensor
     from repro_torch.models import registry as R
 
     def whole(t):
         return (t.full_tensor() if is_dtensor(t) else t)[0].float()
-    with torch.no_grad():
+
+    def run():
         logits, cache, pos = R.prefill(cfg, params, {"tokens": prompt},
                                        max_len)
         outs = [whole(logits)]
@@ -2865,11 +2992,99 @@ def sharded_greedy(cfg, params, prompt, max_len: int, forced=None) -> tuple:
         for i in range(SHARDED_STEPS):
             tok = torch.tensor([toks[-1] if forced is None else forced[i]],
                                dtype=torch.int32, device=prompt.device)
+            before = _gathered(cache, pos, tok) if caches is not None \
+                else None
             logits, cache = R.decode_step(cfg, params, cache, tok, pos)
+            if caches is not None:
+                caches.append(before + _gathered(cache))
             pos = pos + 1
             outs.append(whole(logits))
             toks.append(int(outs[-1].argmax()))
-    return torch.stack(outs).cpu(), toks
+        return outs, toks
+    with torch.no_grad():
+        (outs, toks), routes = with_routes(run)
+    return torch.stack(outs).cpu(), toks, [r.tolist() for r in routes]
+
+
+def _bf16_apart(got: dict, want) -> tuple:
+    """``want``'s bf16 leaves against ``got``'s (path -> leaf) -> (the
+    elements rounded apart, the largest difference in units of the bf16
+    step at the leaf's largest magnitude)."""
+    from repro_torch.models.param import leaves
+    flips, steps = 0, 0.0
+    for path, w in leaves(want):
+        if w.dtype != torch.bfloat16:
+            continue
+        a, b = got[path].float(), w.float()
+        flips += int((a != b).sum())
+        steps = max(steps, float((a - b).abs().max())
+                    / (2.0 ** -7 * float(b.abs().max())))
+    return flips, steps
+
+
+def same_cache_steps(cfg, params, prompt, max_len, caches) -> dict:
+    """The unsharded model on the sharded run's caches.  Its prefill's
+    cache against the sharded prefill's, and each decode step's cache
+    (the step run on the cache before it, writing its own K/V, or a
+    Mamba layer's new state) against the sharded step's: bf16 elements
+    rounded apart, and each bf16 leaf's largest difference in units of
+    the bf16 step at its largest magnitude, at most 2^-7 max|leaf| (an
+    element that sums to near zero can differ by many of its own
+    steps).  Then each decode step runs
+    on the attention leaves of the cache after the sharded step, writing
+    none, so that every cache element it reads is the sharded run's:
+    once as the unsharded decode attends ("mode0": the softmax
+    probabilities rounded to bf16 before P.V) and once as the
+    flash-decode across ranks does ("two_rounds": the log-sum-exp of the
+    whole cache, then exp(logit - lse) rounded to bf16 before P.V, the
+    f32 sum cast to bf16) -> {"mode0", "two_rounds": (steps, V) f32 on
+    the host, "routes": the router's choices of the "two_rounds" steps,
+    "cache_flips", "cache_steps", "kv_flips", "kv_steps": per step}."""
+    from repro_torch.distributed.sharding import mesh_context
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention
+    from repro_torch.models import registry as R
+    from repro_torch.models.param import leaves, tree_map, unflatten
+    decode = ops.decode_attention
+
+    def two_rounds(q, k, v, **kw):
+        lse = decode(q, k, v, lse_only=True, **kw)
+        return decode(q, k, v, lse=lse, **kw).to(v.dtype)
+
+    def steps():
+        outs = []
+        for c, pos, tok, after in caches:
+            post = dict(leaves(after))
+            merged = unflatten(
+                (path, torch.clone(post[path] if path[-1] in
+                                   ("k", "v", "pos") else t))
+                for path, t in leaves(c))
+            logits, _ = R.decode_step(cfg, params, merged, tok, pos)
+            outs.append(logits[0].float())
+        return torch.stack(outs).cpu()
+    with torch.no_grad(), mesh_context(None):
+        _, cache, _ = R.prefill(cfg, params, {"tokens": prompt}, max_len)
+        flips, most = _bf16_apart(dict(leaves(caches[0][0])), cache)
+        kv_flips, kv_steps = [], []
+        for c, pos, tok, after in caches:
+            _, mine = R.decode_step(cfg, params, tree_map(torch.clone, c),
+                                    tok, pos)
+            f, st = _bf16_apart(dict(leaves(after)), mine)
+            kv_flips.append(f)
+            kv_steps.append(st)
+        write, attention._write_slots = attention._write_slots, \
+            lambda *a: None
+        try:
+            mode0 = steps()
+            ops.decode_attention = two_rounds
+            rounds, routes = with_routes(steps)
+        finally:
+            attention._write_slots = write
+            ops.decode_attention = decode
+    return {"mode0": mode0, "two_rounds": rounds,
+            "routes": [r.tolist() for r in routes], "cache_flips": flips,
+            "cache_steps": most, "kv_flips": kv_flips,
+            "kv_steps": kv_steps}
 
 
 def _ulp_off(tree, seed: int = 7):
@@ -3045,21 +3260,24 @@ def sharded_rank(rank: int, port: int, out_dir: str,
         rec = {}
         if rank == 0:
             t0 = time.perf_counter()
-            rec["plain_logits"], rec["plain_tokens"] = sharded_greedy(
-                cfg, params, prompt, max_len)
+            rec["plain_logits"], rec["plain_tokens"], rec["plain_routes"] = \
+                sharded_greedy(cfg, params, prompt, max_len)
             rec["plain_s"] = time.perf_counter() - t0
-            ulp, _ = sharded_greedy(cfg, _ulp_off(params), prompt, max_len,
-                                    forced=rec["plain_tokens"][:-1])
+            ulp, _, _ = sharded_greedy(cfg, _ulp_off(params), prompt,
+                                       max_len,
+                                       forced=rec["plain_tokens"][:-1])
             rec["ulp_steps"] = _rel_steps(ulp, rec["plain_logits"])
         dparams = SH.distribute_tree(params, SH.tree_shardings(
             R.param_axes(cfg), params, mesh, prules), dm)
-        del params
+        if rank != 0:
+            del params
         torch.cuda.synchronize()
+        caches = []
         with _KernelSpy() as spy:
             t0 = time.perf_counter()
             with SH.mesh_context(mesh, arules, dm):
-                logits, rec["tokens"] = sharded_greedy(cfg, dparams, prompt,
-                                                       max_len)
+                logits, rec["tokens"], rec["routes"] = sharded_greedy(
+                    cfg, dparams, prompt, max_len, caches=caches)
             torch.cuda.synchronize()
             rec["sharded_s"] = time.perf_counter() - t0
             rec["launches"], rec["shapes"] = spy.counts(), spy.shapes
@@ -3070,7 +3288,15 @@ def sharded_rank(rank: int, port: int, out_dir: str,
             rec["rel_err"] = float((logits - plain).abs().max()) / \
                 rec["max_logit"]
             rec["rel_steps"] = _rel_steps(logits, plain)
-        del dparams
+            same = same_cache_steps(cfg, params, prompt, max_len, caches)
+            mode0, rounds = same.pop("mode0"), same.pop("two_rounds")
+            rec["same_cache_steps"] = _rel_steps(logits[1:], rounds)
+            rec["cache_effect"] = _rel_steps(mode0, plain[1:])
+            rec["rounding_effect"] = _rel_steps(mode0, rounds)
+            rec["same_cache_routes"] = same.pop("routes")
+            rec.update(same)
+            del params
+        del dparams, caches
         torch.cuda.empty_cache()
         out[arch] = rec
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
@@ -3113,6 +3339,13 @@ def run_sharded(card: str, backend: str = "gloo") -> tuple:
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     record, launches = check_sharded(ranks, card)
+    record["lse_launches"] = {
+        mode: sum(rk[arch]["launches"][key] for rk in ranks
+                  for arch, _ in SHARDED_CHECKS)
+        for mode, key in ((1, "decode_lse"), (2, "decode_partial"))}
+    print(f"sharded: decode_attention lse_mode 1 launched "
+          f"{record['lse_launches'][1]} times, lse_mode 2 "
+          f"{record['lse_launches'][2]} (all ranks and models)", flush=True)
     record["wall_s"] = time.perf_counter() - t_phase
     print(f"sharded: {record['wall_s']:.1f} s for the phase (budget "
           f"{SHARDED_BUDGET_S:.0f} s)", flush=True)
@@ -3125,6 +3358,9 @@ def check_sharded(ranks: list, card: str) -> tuple:
     from repro_torch.configs.base import get_config
     n = len(ranks)
     launches = {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0}
+
+    def fmt(xs):
+        return "[" + ", ".join(f"{x:.3e}" for x in xs) + "]"
     record = {"mesh": list(SHARDED_MESH), "models": {}}
     for arch, prompt_len in SHARDED_CHECKS:
         cfg = get_config(arch)
@@ -3134,15 +3370,43 @@ def check_sharded(ranks: list, card: str) -> tuple:
                  f"unsharded {r0['plain_tokens']}")
         u = max(r0["ulp_steps"])
         bound = max(SHARDED_LOGIT_TOL, 2 * u)
-        if not r0["rel_err"] <= bound:
-            fail(f"7c {arch}: sharded logits {r0['rel_err']:.3e} of "
-                 f"max|logit| from the unsharded (steps "
-                 f"{r0['rel_steps']}), over max({SHARDED_LOGIT_TOL}, 2 x "
-                 f"{u:.3e}, the one-ulp gap)")
+        free = [max(bound, 2 * c, 2 * e) for c, e in
+                zip(r0["cache_effect"], r0["rounding_effect"])]
+        if not r0["rel_steps"][0] <= bound:
+            fail(f"7c {arch}: sharded prefill logits "
+                 f"{r0['rel_steps'][0]:.3e} of max|logit| from the "
+                 f"unsharded, over max({SHARDED_LOGIT_TOL}, 2 x {u:.3e}, "
+                 f"the one-ulp gap)")
+        if not all(g <= f for g, f in zip(r0["rel_steps"][1:], free)):
+            fail(f"7c {arch}: sharded decode steps {r0['rel_steps'][1:]} "
+                 f"of max|logit| from the unsharded, over {free} (max("
+                 f"{SHARDED_LOGIT_TOL}, 2 x {u:.3e}, the one-ulp gap; "
+                 f"twice each step's cache effect {r0['cache_effect']} and "
+                 f"rounding effect {r0['rounding_effect']})")
+        if not max(r0["same_cache_steps"]) <= bound:
+            fail(f"7c {arch}: sharded decode steps "
+                 f"{r0['same_cache_steps']} of max|logit| from the "
+                 f"unsharded model on the same caches (the steps' new K/V "
+                 f"included) and attending as the flash-decode does, over "
+                 f"{bound:.3e}")
+        if not max([r0["cache_steps"], *r0["kv_steps"]]) <= 1.0:
+            fail(f"7c {arch}: the sharded run's bf16 cache lies "
+                 f"{r0['cache_steps']} (prefill) and {r0['kv_steps']} "
+                 f"(each decode step's K/V) bf16 steps from the "
+                 f"unsharded's")
+        calls = len(r0["same_cache_routes"])
+        if r0["routes"][len(r0["routes"]) - calls:] != \
+                r0["same_cache_routes"]:
+            fail(f"7c {arch}: the sharded decode steps' router choices "
+                 f"differ from the unsharded model's on the same caches")
         for r, rk in enumerate(ranks):
             rec, c = rk[arch], rk[arch]["launches"]
             if rec["tokens"] != r0["tokens"]:
                 fail(f"7c {arch}: rank {r}'s tokens differ from rank 0's")
+            if rec["routes"] != r0["plain_routes"]:
+                fail(f"7c {arch}: rank {r}'s router choices (the prompt's "
+                     f"and every decode step's) differ from the unsharded "
+                     f"run's")
             shapes = rec["shapes"]
             if cfg.mamba is not None:
                 want = cfg.mamba.n_heads(cfg.d_model) // n
@@ -3183,6 +3447,13 @@ def check_sharded(ranks: list, card: str) -> tuple:
         for name in launches:
             launches[name] += sum(rk[arch]["launches"][name] for rk in ranks)
         record["models"][arch] = {
+            "router_calls": len(r0["plain_routes"]), "free_bound": free,
+            "same_cache_steps": r0["same_cache_steps"],
+            "cache_effect": r0["cache_effect"],
+            "rounding_effect": r0["rounding_effect"],
+            "cache_flips": r0["cache_flips"],
+            "cache_steps": r0["cache_steps"],
+            "kv_flips": r0["kv_flips"], "kv_steps": r0["kv_steps"],
             "tokens": r0["tokens"], "rel_err": r0["rel_err"],
             "rel_steps": r0["rel_steps"], "ulp_steps": r0["ulp_steps"],
             "bound": bound,
@@ -3193,13 +3464,80 @@ def check_sharded(ranks: list, card: str) -> tuple:
                                                  for rk in ranks]}
         print(f"sharded {arch}: {n} ranks ({card}), tokens "
               f"{r0['tokens']} equal to the unsharded run, logits "
-              f"{r0['rel_err']:.3e} of max|logit| (bound {bound:.3e}; the "
-              f"one-ulp gap {u:.3e}); rank 0 launches "
+              f"{r0['rel_err']:.3e} of max|logit| (the one-ulp gap "
+              f"{u:.3e}; the prefill {r0['rel_steps'][0]:.3e}, bound "
+              f"{bound:.3e}; the decode steps {fmt(r0['rel_steps'][1:])}"
+              f", bounds {fmt(free)}), on the same caches "
+              f"{fmt(r0['same_cache_steps'])} (bound {bound:.3e}; the "
+              f"cache effect {fmt(r0['cache_effect'])}, the "
+              f"probabilities' rounding effect "
+              f"{fmt(r0['rounding_effect'])}), "
+              f"{r0['cache_flips']} bf16 prefill cache elements and "
+              f"{r0['kv_flips']} of each step's K/V rounded apart (at most "
+              f"{max([r0['cache_steps'], *r0['kv_steps']]):.2f} step); "
+              f"router choices equal on every rank "
+              f"({len(r0['plain_routes'])} calls, the prompt's and every "
+              f"decode step's); rank 0 "
+              f"launches "
               f"{r0['launches']} at {r0['shapes']}; LSE vs plain "
               f"{[rk[arch]['errs'] for rk in ranks]}; unsharded "
               f"{r0['plain_s']:.2f} s, sharded {r0['sharded_s']:.2f} s",
               flush=True)
     return record, launches
+
+
+# ---------------------------------------------------------------------------
+# Step 7, the families on one rank of a mesh (host only)
+# ---------------------------------------------------------------------------
+#: the mesh, and the smoke shape cells of every family: a prefill, one
+#: decode step (tp) and one train step (sp), as the dry-run builds them
+FAMILY_MESH = (1, 4)
+FAMILY_CELLS = (("smoke_prefill", "prefill", 40, 2, "tp"),
+                ("smoke_decode", "decode", 48, 2, "tp"),
+                ("smoke_train", "train", 32, 2, "sp"))
+#: the production cell of the d_ff-parallel experts: mixtral-8x22b's 8
+#: experts on the 16-way model axis of 16x16
+FAMILY_POD_CELLS = (("mixtral-8x22b", "decode_32k"),)
+FAMILY_BUDGET_S = 30.0
+
+
+def run_family_meta() -> dict:
+    """Every family's smoke config run as one rank of a (1, 4) mesh over
+    the fake process group on the ``meta`` device (``launch.dryrun
+    .dryrun_cell``: the real step on DTensors of meta shards, no card),
+    and the d_ff-parallel pod cells as one rank of 16x16: each must run
+    on this machine's torch without ``sharded_error``."""
+    from repro_torch.configs.base import (ALL_SHAPES, ShapeCell, get_config,
+                                          list_configs)
+    from repro_torch.launch.dryrun import MESHES, dryrun_cell
+    from repro_torch.launch.mesh import Mesh
+    t0 = time.perf_counter()
+    mesh = Mesh(FAMILY_MESH, ("data", "model"))
+    runs = [(arch + "-smoke", ShapeCell(*c[:4]), mesh, c[4])
+            for arch in list_configs() for c in FAMILY_CELLS]
+    shapes = {c.name: c for c in ALL_SHAPES}
+    runs += [(arch, shapes[cell], MESHES["pod"], "tp")
+             for arch, cell in FAMILY_POD_CELLS]
+    record, errors = {}, []
+    for arch, cell, m, strategy in runs:
+        t1 = time.perf_counter()
+        r = dryrun_cell(get_config(arch), cell, m, strategy)
+        key = f"{arch}/{cell.name}/{'x'.join(map(str, m.shape))}"
+        record[key] = {"s": time.perf_counter() - t1,
+                       "collectives": r.get("collectives", {}).get(
+                           "counts")}
+        if "sharded_error" in r:
+            errors.append(f"{key}: {r['sharded_error']}")
+    record_s = time.perf_counter() - t0
+    print(f"families on a mesh: {len(runs)} runs ({len(FAMILY_CELLS)} "
+          f"cells x {len(list_configs())} smoke families on "
+          f"{FAMILY_MESH}, {len(FAMILY_POD_CELLS)} pod cells) in "
+          f"{record_s:.1f} s of host time (budget {FAMILY_BUDGET_S:.0f} s)",
+          flush=True)
+    if errors:
+        fail("step 7: a sharded step failed on this torch:\n"
+             + "\n".join(errors))
+    return {"runs": record, "s": record_s}
 
 
 # ---------------------------------------------------------------------------
@@ -3574,6 +3912,12 @@ def run_steps(t_start: float, lap: Laps) -> int:
         record["checks"][f"decode_attention/{case[0]}"] = rec
         print(f"check decode_attention {case[0]}: {json.dumps(rec)}",
               flush=True)
+    for case in DECODE_LSE_CASES:
+        for mode, rec in check_decode_lse(device, *case).items():
+            record["checks"][f"decode_attention/{case[0]} lse_mode {mode}"] = \
+                rec
+            print(f"check decode_attention {case[0]} lse_mode {mode}: "
+                  f"{json.dumps(rec)}", flush=True)
     for case in SSD_CASES:
         rec = check_ssd(device, *case)
         record["checks"][f"ssd_scan/{case[0]}"] = rec
@@ -3823,6 +4167,8 @@ def run_steps(t_start: float, lap: Laps) -> int:
     # ---- step 7, the launch tooling on the card -----------------------------
     record["tooling"] = run_tooling(record, card)
     lap("7 tooling")
+    record["families_meta"] = run_family_meta()
+    lap("7 families")
 
     # ---- step 7b, static analysis, then check's rejections on the card ----
     record["analysis"], analysis_launches = run_analysis(

@@ -48,7 +48,8 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref, vector_quantiles, vector_step
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.distributed.sharding import (from_local_as, is_dtensor,
-                                              mesh_chunk, to_local_as)
+                                              mesh_chunk, mesh_context,
+                                              to_local_as)
 
 
 def _on_cuda(x: torch.Tensor) -> bool:
@@ -306,7 +307,8 @@ def _sharded_ssd(x, dt, A, B, C, chunk, h0):
     Cl = to_local_as(C, mesh, like({0: 0}), x_pl)
     st_pl = like({0: 0, 2: 1})
     hl = to_local_as(h0, mesh, st_pl, x_pl)
-    y, h = ssd_scan(xl, dtl, Al, Bl, Cl, chunk=chunk, h0=hl)
+    with mesh_context(None):      # each rank scans its own heads
+        y, h = ssd_scan(xl, dtl, Al, Bl, Cl, chunk=chunk, h0=hl)
     b, s, nh, p = x.shape
     return (from_local_as(y, mesh, x_pl, (b, s, nh, p)),
             from_local_as(h, mesh, st_pl, (b, nh, p, B.shape[-1])))

@@ -33,6 +33,9 @@ import functools
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.distributed.sharding import shard
+from repro_torch.util import opt_flags
+
 _BIG = 1e18
 _EPS = 1e-12
 
@@ -354,9 +357,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     chunk's logits at a time, where it would otherwise keep every
     chunk's (the saved set would grow as S x T).  Outputs and gradients
     are the same bits either way.  Unlike the reference it takes any S
-    (the last chunk may be short)."""
+    (the last chunk may be short).  Under ``REPRO_OPTS=sp_naive_attn``
+    the whole sequence is one ``naive_attention``, as the reference's
+    option materialises it (no chunks, no checkpoint)."""
     s = q.shape[1]
-    if s <= chunk:
+    if s <= chunk or "sp_naive_attn" in opt_flags():
         return naive_attention(q, k, v, causal=causal, window=window)
     records = torch.is_grad_enabled() and any(
         x.requires_grad for x in (q, k, v))
@@ -455,7 +460,12 @@ def ssd_chunked(x, dt, A, B, C, *, chunk: int, h0=None):
     ``M[t, s] = (C_t . B_s) exp(cum_t - cum_s) dt_s`` for ``t >= s`` (the
     mask applied before the exp, where ``s > t`` could overflow), ``y =
     M x + exp(cum_t) C_t . h``, ``h = exp(cum_L) h + sum_s exp(cum_L -
-    cum_s) dt_s x_s (x) B_s``.  ``s`` must be a multiple of ``chunk``."""
+    cum_s) dt_s x_s (x) B_s``.  ``s`` must be a multiple of ``chunk``.
+    Under ``REPRO_OPTS=ssd_shard_state`` each chunk's new state is
+    constrained to ``("batch", "mamba_heads", None, None)``, as the
+    reference constrains its scan carry: the identity off a mesh and on
+    a rank's local shard (``kernels.ops`` scans each rank's heads)."""
+    shard_state = "ssd_shard_state" in opt_flags()
     b, s, h, p = x.shape
     n = B.shape[-1]
     if s % chunk:
@@ -483,6 +493,8 @@ def ssd_chunked(x, dt, A, B, C, *, chunk: int, h0=None):
         w = torch.exp(cum[:, -1:, :] - cum) * dtc            # (b, L, h)
         upd = torch.einsum("blh,bln,blhp->bhpn", w, Bc, xc)
         hprev = hprev * torch.exp(cum[:, -1, :])[:, :, None, None] + upd
+        if shard_state:
+            hprev = shard(hprev, "batch", "mamba_heads", None, None)
         ys.append(y)
     return torch.cat(ys, dim=1), hprev
 

@@ -100,6 +100,7 @@ from repro_torch.models import registry as R
 from repro_torch.models.param import axes_tree, leaves
 from repro_torch.training.optimizer import OptConfig, abstract_opt_state
 from repro_torch.training.train_step import make_train_step
+from repro_torch.util import opt_flags
 
 #: the meshes a cell runs on, by the tag its result file carries
 MESHES = {"card": Mesh((1, 1), ("data", "model")),
@@ -143,7 +144,8 @@ def build_cell(cfg: ArchConfig, cell: ShapeCell, mesh: Mesh, strategy: str):
                 "step": ()}
         batch = S.batch_specs(cfg, cell)
         b_sh = tree_shardings(_batch_axes(batch), batch, mesh, arules)
-        step = make_train_step(cfg, opt_cfg)
+        mb = 8 if "microbatch8" in opt_flags() else 1
+        step = make_train_step(cfg, opt_cfg, microbatches=mb)
         return step, (aparams, aopt, batch), (p_sh, o_sh, b_sh)
 
     if cell.kind == "prefill":

@@ -3,10 +3,11 @@ roofline delta against the recorded baseline.
 
 Copy of ``repro.launch.perf`` on the port's dry-run (``launch.dryrun``,
 on the ``meta`` device; it needs no card).  ``--opts`` sets
-``REPRO_OPTS`` for the run; the port reads two options, ``w8_experts``
-(``models/moe.py``: int8 expert banks) and ``remat_dots``
-(``models/transformer.py``: the group checkpoint keeps the unbatched
-products' outputs).  The baseline is the untagged
+``REPRO_OPTS`` for the run; the port reads the reference's five options
+(``repro_torch.util``): ``w8_experts``, ``remat_dots``,
+``sp_naive_attn``, ``ssd_shard_state`` and ``microbatch8``, so the
+reference's own example ``--strategy sp --opts sp_naive_attn,remat_dots``
+runs both.  The baseline is the untagged
 result of the same cell under ``launch.roofline.ARTIFACT_DIR``.
 ``--multipod`` runs the cell as one rank of the 2x16x16 mesh, and the
 line then carries the collective term and bytes.
