@@ -28,6 +28,16 @@ reference; their tokens are ignored.  Every ``step()`` ends by reading
 the chosen tokens back to the host, so it returns only after the card
 is done and latencies are real.
 
+Given a ``repro_torch.core.spans.SpanLog`` in ``spans``, the engine
+records its layer boundaries there: a ``submit`` event (``req_id``); a
+``prefill`` span a prompt (``req_id``, ``L``, ``bucket``) holding
+``prefill.enqueue`` (the model's prefill call); a ``decode`` span a step
+(``rows``, the batch it computes, and ``live``, each live slot's
+``(req_id, keys attended)``) holding ``decode.enqueue`` (the model's
+decode step, the argmax and the position update).  A step span ends at
+the clock read that ends its step counter, so the ``prefill`` and
+``decode`` spans sum to ``prefill_seconds`` and ``decode_seconds``.
+
 ``StubEngine`` and ``BatchedStubEngine`` are the engine protocol without
 a model: profile-timed slots, and the simulator's continuous-batching
 op sequencer (``BatchScheduler``) on a wall or virtual clock.
@@ -282,6 +292,7 @@ class InferenceEngine:
         self._exact_prefill = any(k in (MAMBA, ATTN_SWA)
                                   for k in cfg.resolved_pattern)
         self.completed: list[Completion] = []
+        self.spans = None              # a SpanLog records the steps' spans
         self.reset_counters()
 
     def reset_counters(self) -> None:
@@ -298,6 +309,9 @@ class InferenceEngine:
         req = Request(req_id, np.asarray(prompt, np.int32), max_new_tokens,
                       submitted_at=self.clock())
         self.queue.append(req)
+        if self.spans is not None:
+            t = time.perf_counter()
+            self.spans.add("submit", t, t, req_id=req_id)
 
     def pending(self) -> int:
         return len(self.queue)
@@ -327,6 +341,7 @@ class InferenceEngine:
 
     # ------------------------------------------------------------- internals
     def _admit(self, req: Request, slot: int):
+        spans = self.spans
         t0 = time.perf_counter()
         L = len(req.prompt)
         bucket = L if self._exact_prefill else min(_bucket(L), self.max_len)
@@ -336,6 +351,7 @@ class InferenceEngine:
             self.cfg, self.params,
             {"tokens": torch.from_numpy(toks).to(self.device)}, self.max_len,
             lengths=torch.tensor([L], dtype=torch.int32, device=self.device))
+        t1 = time.perf_counter() if spans is not None else 0.0
         first = int(torch.argmax(logits[0]))          # waits for the card
         for name, entry in cache1.items():
             for leaf, c in entry.items():
@@ -347,18 +363,32 @@ class InferenceEngine:
         self.active[slot] = req
         self.prefill_count += 1
         self.tokens_done += 1
-        self.prefill_seconds += time.perf_counter() - t0
+        end = time.perf_counter()
+        self.prefill_seconds += end - t0
+        if spans is not None:
+            p = spans.add("prefill", t0, end, req_id=req.req_id, L=L,
+                          bucket=bucket)
+            spans.add("prefill.enqueue", t0, t1, p)
         self._maybe_finish(slot)
 
     def _decode_once(self) -> list[Completion]:
+        spans = self.spans
         t0 = time.perf_counter()
         logits, _ = R.decode_step(self.cfg, self.params, self.cache,
                                   self.tokens, self.positions)
         self.tokens = torch.argmax(logits, dim=-1).to(torch.int32)
         self.positions += 1
         self.decode_steps += 1
+        t1 = time.perf_counter() if spans is not None else 0.0
         toks = self.tokens.cpu().numpy()              # waits for the card
-        self.decode_seconds += time.perf_counter() - t0
+        end = time.perf_counter()
+        self.decode_seconds += end - t0
+        if spans is not None:
+            # a live slot attended its prompt and every token it has
+            d = spans.add("decode", t0, end, rows=self.max_batch,
+                          live=[(r.req_id, len(r.prompt) + len(r.tokens_out))
+                                for r in self.active if r is not None])
+            spans.add("decode.enqueue", t0, t1, d)
         done = []
         for slot, req in enumerate(self.active):
             if req is None:
