@@ -122,7 +122,9 @@ trains phi3-mini-3.8b and mamba2-1.3b at full width and depth:
    launched (both attention kernels for phi3, ``flash_attention`` once
    per layer and prefill, ``decode_attention`` once per layer and decode
    step; ``ssd_scan`` once per layer and prefill for mamba2; warm-ups
-   included), and prints the serving metrics;
+   included), that every replica captured its decode step as one CUDA
+   graph once and replayed it at every decode step (in 6c-6f as well),
+   and prints the serving metrics;
 6c. serves gemma3-12b at full width and full depth (48 layers, 11.8 B
    parameters in bf16) the same way, with 1100-token prompts
    (``GEMMA_SERVE_ARGS``): every request must complete, with
@@ -1494,7 +1496,23 @@ def run_serving(args=SERVE_ARGS) -> dict:
                 "decode_step_ms", "tokens_per_s"):
         if not math.isfinite(report[key]) or report[key] <= 0:
             fail(f"serving: {key} = {report[key]!r}")
+    check_decode_graph(args[args.index("--arch") + 1],
+                       int(args[args.index("--replicas") + 1]),
+                       report["decode_graph_captures"],
+                       report["decode_graph_replays"], report["decode_steps"])
     return report
+
+
+def check_decode_graph(name: str, engines: int, captures: int,
+                       replays: int, steps: int) -> None:
+    """On one card every warmed engine captures its decode step once, at
+    the end of its warm-up, and replays it at every counted step."""
+    print(f"{name} decode graph: {captures} captures for {engines} "
+          f"engines, {replays} replays of {steps} decode steps", flush=True)
+    if captures != engines or replays != steps:
+        fail(f"{name}: {captures} decode graph captures for {engines} "
+             f"engines and {replays} replays for {steps} decode steps; "
+             f"expected one capture an engine and a replay a step")
 
 
 def check_attention_serving(args, report, launches) -> None:
@@ -1645,6 +1663,8 @@ def run_jamba_engine(kernels) -> tuple:
         fail(f"jamba engine: launches {launches}, expected {want} for "
              f"{eng.prefill_count} prefills and {eng.decode_steps} decode "
              f"steps")
+    check_decode_graph("jamba engine", 1, eng.decode_graph_captures,
+                       eng.decode_graph_replays, eng.decode_steps)
     del eng, params
     torch.cuda.empty_cache()
     rec["phase_s"] = time.perf_counter() - t_phase

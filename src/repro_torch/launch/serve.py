@@ -70,6 +70,10 @@ def serving_report(rt: EngineRuntime, wall: float) -> dict:
         "decode_step_ms": (sum(getattr(e, "decode_seconds", 0.0)
                                for e in engines) / steps * 1e3
                            if steps else float("nan")),
+        "decode_graph_captures": sum(getattr(e, "decode_graph_captures", 0)
+                                     for e in engines),
+        "decode_graph_replays": sum(getattr(e, "decode_graph_replays", 0)
+                                    for e in engines),
         "prefills": prefills,
         "prefill_ms": (sum(getattr(e, "prefill_seconds", 0.0)
                            for e in engines) / prefills * 1e3

@@ -28,15 +28,30 @@ reference; their tokens are ignored.  Every ``step()`` ends by reading
 the chosen tokens back to the host, so it returns only after the card
 is done and latencies are real.
 
+On one card (a CUDA device, parameters that are not DTensors) the decode
+step is one CUDA graph: the model's decode step, the argmax into
+``tokens`` and the position update, captured once an eager step has
+initialised the libraries (``make_warmed_engine`` captures at the end of
+its warm-up, an engine built directly at its second decode step) and
+replayed at every later step, with the same kernels on the same buffers
+as the eager step.  ``tokens``, ``positions`` and the cache are written
+in place and never reassigned, so an admission between two replays is
+seen by the next one.  On the CPU and under a mesh the step runs
+eagerly.  ``decode_graph_captures`` counts the captures (never reset),
+``decode_graph_replays`` the replays; the kernel wrappers' ``launches``
+counters count calls issued to the card: a capture adds none, each
+replay the launches recorded at its capture.
+
 Given a ``repro_torch.core.spans.SpanLog`` in ``spans``, the engine
 records its layer boundaries there: a ``submit`` event (``req_id``); a
 ``prefill`` span a prompt (``req_id``, ``L``, ``bucket``) holding
 ``prefill.enqueue`` (the model's prefill call); a ``decode`` span a step
 (``rows``, the batch it computes, and ``live``, each live slot's
 ``(req_id, keys attended)``) holding ``decode.enqueue`` (the model's
-decode step, the argmax and the position update).  A step span ends at
-the clock read that ends its step counter, so the ``prefill`` and
-``decode`` spans sum to ``prefill_seconds`` and ``decode_seconds``.
+decode step, the argmax and the position update, or the replay of their
+CUDA graph).  A step span ends at the clock read that ends its step
+counter, so the ``prefill`` and ``decode`` spans sum to
+``prefill_seconds`` and ``decode_seconds``.
 
 ``StubEngine`` and ``BatchedStubEngine`` are the engine protocol without
 a model: profile-timed slots, and the simulator's continuous-batching
@@ -54,8 +69,21 @@ import torch
 
 from repro_torch.configs.base import ATTN_SWA, MAMBA, ArchConfig
 from repro_torch.core.profiles import BatchScheduler, apply_service_noise
+from repro_torch.distributed.sharding import is_dtensor
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models import param as P
 from repro_torch.models import registry as R
+
+#: the kernel wrappers a model step launches; each counts its calls in
+#: attributes named ``*launches``
+_KERNELS = (decode_attention, flash_attention, ssd_scan)
+
+
+def _launch_counts() -> dict:
+    return {(k, a): n for k in _KERNELS for a, n in vars(k).items()
+            if a.endswith("launches")}
 
 
 @dataclass
@@ -250,6 +278,7 @@ def make_warmed_engine(cfg: ArchConfig, params, *, max_batch: int = 4,
                           max_len=prompt_len + max_new_tokens + 32)
     eng.submit(np.arange(prompt_len) % cfg.vocab_size, 2, -1)
     eng.run_until_idle()
+    eng._maybe_capture()
     eng.reset_counters()
     return eng
 
@@ -293,11 +322,20 @@ class InferenceEngine:
                                   for k in cfg.resolved_pattern)
         self.completed: list[Completion] = []
         self.spans = None              # a SpanLog records the steps' spans
+        # one CUDA graph a decode step on one card; captured after an
+        # eager step has run
+        self._graphable = self.device.type == "cuda" and not any(
+            is_dtensor(t) for _, t in P.leaves(params))
+        self._stepped = False
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._graph_launches: dict = {}
+        self.decode_graph_captures = 0
         self.reset_counters()
 
     def reset_counters(self) -> None:
         """Zero the step counters and timers (after a warm-up)."""
         self.decode_steps = 0
+        self.decode_graph_replays = 0
         self.prefill_count = 0
         self.tokens_done = 0           # tokens generated for live requests
         self.decode_seconds = 0.0      # host clock, each step ends synced
@@ -371,13 +409,46 @@ class InferenceEngine:
             spans.add("prefill.enqueue", t0, t1, p)
         self._maybe_finish(slot)
 
+    def _decode_step(self) -> None:
+        """The model's decode step, the argmax into ``tokens`` and the
+        position update, all in place (what the CUDA graph holds)."""
+        logits, _ = R.decode_step(self.cfg, self.params, self.cache,
+                                  self.tokens, self.positions)
+        self.tokens.copy_(torch.argmax(logits, dim=-1))
+        self.positions += 1
+
+    def _maybe_capture(self) -> None:
+        """Capture ``_decode_step`` as this engine's CUDA graph, once, on
+        one card and after an eager step (cuBLAS and the kernels'
+        libraries initialised).  The capture records and runs nothing:
+        the launch counters are put back and each replay adds what it
+        recorded."""
+        if self._graph is not None or not (self._graphable
+                                           and self._stepped):
+            return
+        kept = _launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(self.device), torch.cuda.graph(graph):
+            self._decode_step()
+        self._graph_launches = {key: n - kept[key]
+                                for key, n in _launch_counts().items()}
+        for (k, a), n in kept.items():
+            setattr(k, a, n)
+        self._graph = graph
+        self.decode_graph_captures += 1
+
     def _decode_once(self) -> list[Completion]:
         spans = self.spans
         t0 = time.perf_counter()
-        logits, _ = R.decode_step(self.cfg, self.params, self.cache,
-                                  self.tokens, self.positions)
-        self.tokens = torch.argmax(logits, dim=-1).to(torch.int32)
-        self.positions += 1
+        self._maybe_capture()
+        if self._graph is None:
+            self._decode_step()
+            self._stepped = True
+        else:
+            self._graph.replay()          # on the current stream
+            for (k, a), n in self._graph_launches.items():
+                setattr(k, a, getattr(k, a) + n)
+            self.decode_graph_replays += 1
         self.decode_steps += 1
         t1 = time.perf_counter() if spans is not None else 0.0
         toks = self.tokens.cpu().numpy()              # waits for the card

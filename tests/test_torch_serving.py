@@ -134,6 +134,48 @@ def test_engine_cache_in_place_and_bucketed_prefill(smoke_model):
     assert eng.cache["pos0"]["k"].data_ptr() == ptr   # updated in place
 
 
+def test_engine_decodes_eagerly_on_cpu(smoke_model):
+    """The decode step's CUDA graph needs a card: on the CPU the warmed
+    engine captures nothing and every step runs eagerly."""
+    cfg, _, params = smoke_model
+    eng = make_warmed_engine(cfg, params, max_batch=2, prompt_len=20,
+                             max_new_tokens=4)
+    assert eng.decode_graph_captures == eng.decode_graph_replays == 0
+    for i in range(3):
+        eng.submit(np.arange(5 + 7 * i) % cfg.vocab_size, 4, i)
+    assert len(eng.run_until_idle()) == 3 and eng.decode_steps > 0
+    assert eng.decode_graph_captures == eng.decode_graph_replays == 0
+
+
+def test_engine_tokens_and_positions_keep_their_storage(smoke_model):
+    """``tokens`` and ``positions`` are written in place, never
+    reassigned: the buffers a captured decode step reads and writes are
+    those every decode step and admission use."""
+    cfg, _, params = smoke_model
+    eng = InferenceEngine(cfg, params, max_batch=2, max_len=96)
+    ptrs = (eng.tokens.data_ptr(), eng.positions.data_ptr())
+    for i, n in enumerate((24, 9, 32)):
+        eng.submit(np.arange(n) % cfg.vocab_size, 5, i)
+    steps = 0
+    while not eng.idle():
+        eng.step()
+        steps += 1
+        assert (eng.tokens.data_ptr(), eng.positions.data_ptr()) == ptrs
+    assert eng.prefill_count == 3 and steps > eng.prefill_count
+
+
+def test_engine_reset_counters_zeroes_graph_replays(smoke_model):
+    """``reset_counters`` zeroes the replays with the other step
+    counters; the captures (one an engine) are never reset."""
+    cfg, _, params = smoke_model
+    eng = InferenceEngine(cfg, params, max_batch=1, max_len=64)
+    eng.decode_graph_replays, eng.decode_graph_captures = 7, 1
+    eng.decode_steps = 7
+    eng.reset_counters()
+    assert eng.decode_graph_replays == eng.decode_steps == 0
+    assert eng.decode_graph_captures == 1
+
+
 def _stub_run(mod_rt, backends, scenario):
     clock = mod_rt.VirtualClock()
     exp = scenario.compile()
